@@ -1,0 +1,526 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch/CUDA port (``gigapaxos_tpu_torch``).
+
+Builds every CUDA kernel of the port from the sources in this checkout,
+holds each against its plain torch version on the card, then drives the
+port's main path at the scale users run it — 1,048,576 groups, window 16,
+3 replicas — through the two entry points the repo uses:
+
+1. device and build: the card's name and power limit, one ``nvcc`` per
+   kernel source (all started together), the ptxas report;
+2. kernel vs plain version on the card: the accept kernel and
+   ``accept_reference`` on identical clones of a G=2^20, W=16 state with
+   inactive rows, advanced cursors and promised ballots, at B = 8, 4096
+   and 2^18 lanes over several seeds — ``bal``, ``acc`` and all four
+   output rows must be bit-identical; times per call and the byte bound;
+   then storm steps and SPI waves at a small size on the card against
+   the same calls on the CPU (the plain path the CPU tests hold against
+   the JAX package) — every result and state plane equal;
+3. the decide storm: ``make_fleet(2**20, 16, R=3)`` and several
+   ``decide_storm_step`` calls at B = 2^18 — every step decides every
+   granted lane, the replicas' ``dec`` planes agree, and ``exec_cursor``
+   matches a recount from the lanes;
+4. the SPI engine: three ``ColumnarBackend(2**20, 16)`` run the
+   propose → accept ×3 → accept_reply ×3 → commit ×3 pipeline at
+   B = 16384 lanes a wave (four 4096-lane chunks), plus fused
+   ``accept_commit_submit``/``collect`` waves — every granted request is
+   decided exactly once;
+5. the kernels' launch counters, reset just before each of phases 3 and
+   4 and read just after, must show that those paths went through every
+   kernel.
+
+It prints one JSON line listing every kernel (route, source, the TPU
+kernel it replaces, launches on the main path, error against the plain
+version, times, bound), the ``nvidia-smi`` name/power-limit line, and as
+its last line ``{"ok": true, "device": {...}}``.  Any failed phase ends
+the run with a non-zero exit and no result; so does a machine with no
+CUDA device or a directory without the port beside this script.
+
+Run: ``python3 chip_smoke.py`` from the root of the repo, on one card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+G_FULL, W_FULL, R_FULL = 1 << 20, 16, 3
+STORM_B, STORM_STEPS = 1 << 18, 4
+SPI_B, SPI_ITERS, SPI_FUSED_ITERS = 16384, 10, 2
+PARITY_BS = (8, 4096, 1 << 18)
+PARITY_SEEDS = (0, 1, 2)
+TIMING_REPS = 30
+# device-memory rate of the card for the byte bound (H100 SXM data
+# sheet; the PCIe part is slower)
+HBM_BYTES_PER_S = {"pcie": 2.0e12, "default": 3.35e12}
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def info(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# -- phase 1 -----------------------------------------------------------------
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+# -- phase 2 -----------------------------------------------------------------
+
+
+def parity_state(G, W, gen):
+    """A state with inactive rows, advanced cursors, promised ballots and
+    a filled accepted window."""
+    from gigapaxos_tpu_torch.ops.types import make_state
+    dev = torch.device("cuda")
+    st = make_state(G, W, dev)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    st.active = torch.rand(G, generator=gen, device=dev) < 0.9
+    st.exec_cursor = ri(0, 1000, (G,))
+    st.bal = ri(0, 1 << 16, (G,))
+    st.acc = ri(-1, 1 << 20, (G, W, 4))
+    return st
+
+
+def parity_lanes(st, B, gen):
+    """B lanes with distinct (row, slot) pairs (the kernel's
+    precondition): stale, in-window and out-of-window slots, ballots
+    below, at and above the promise, ~10% invalid lanes."""
+    dev = st.device
+    G, W = st.G, st.W
+    span = 64  # slot offsets: [-8, 0) stale, [0, W) window, rest beyond
+    keys = torch.randint(0, G * span, (2 * B + 64,), generator=gen,
+                         device=dev, dtype=torch.int64).unique()
+    keys = keys[torch.randperm(keys.numel(), generator=gen,
+                               device=dev)[:B]]
+    assert keys.numel() == B
+    g = (keys // span).to(torch.int32)
+    slot = st.exec_cursor[g.long()] + (keys % span).to(torch.int32) - 8
+    bal = st.bal[g.long()] + torch.randint(-2, 3, (B,), generator=gen,
+                                           device=dev, dtype=torch.int32)
+    rlo = torch.randint(-(1 << 31), (1 << 31) - 1, (B,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    rhi = torch.randint(-(1 << 31), (1 << 31) - 1, (B,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    valid = torch.rand(B, generator=gen, device=dev) < 0.9
+    return g, slot, bal, rlo, rhi, valid
+
+
+def device_ms(fn, reps=TIMING_REPS) -> float:
+    """Median device time of one call, from CUDA events around it, with
+    the stream kept busy ahead of the call (``torch.cuda._sleep``) so
+    the host's launch overhead is not counted as device time."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def accept_bytes(st0, lanes, out, bal_after) -> int:
+    """Bytes the accept function must move for these lanes: each lane
+    input read once, each output written once, each touched row's
+    active/bal/exec_cursor read once, each raised ballot and each stored
+    pvalue written once."""
+    g, slot, bal, rlo, rhi, valid = lanes
+    B = g.numel()
+    gi = torch.where(valid, g, 0).long()
+    rows = gi.unique()
+    raised = int((bal_after[rows] != st0.bal[rows]).sum())
+    stored = int(((out[0] != 0) & (out[1] == 0)).sum())
+    return B * (5 * 4 + 1) + B * 4 * 4 + rows.numel() * (1 + 4 + 4) + \
+        raised * 4 + stored * 16
+
+
+def phase_parity(name_line):
+    from gigapaxos_tpu_torch.ops.accept_cuda import accept, accept_reference
+    hbm = HBM_BYTES_PER_S["pcie" if "PCIe" in name_line else "default"]
+    rows = {}
+    max_err = 0
+    for seed in PARITY_SEEDS:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        base = parity_state(G_FULL, W_FULL, gen)
+        for B in PARITY_BS:
+            lanes = parity_lanes(base, B, gen)
+            st_k = dataclasses.replace(base, bal=base.bal.clone(),
+                                       acc=base.acc.clone())
+            st_r = dataclasses.replace(base, bal=base.bal.clone(),
+                                       acc=base.acc.clone())
+            out_k = accept(st_k, *lanes)
+            out_r = accept_reference(st_r, *lanes)
+            torch.cuda.synchronize()
+            for what, a, b in (("out", out_k, out_r),
+                               ("bal", st_k.bal, st_r.bal),
+                               ("acc", st_k.acc, st_r.acc)):
+                err = int((a.long() - b.long()).abs().max()) \
+                    if a.numel() else 0
+                max_err = max(max_err, err)
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"accept kernel != accept_reference: {what} "
+                        f"(seed {seed}, B={B}, max abs err {err})")
+            n_store = int(((out_k[0] != 0) & (out_k[1] == 0)).sum())
+            if seed == PARITY_SEEDS[0]:
+                nbytes = accept_bytes(base, lanes, out_k, st_k.bal)
+                st_t = dataclasses.replace(base, bal=base.bal.clone(),
+                                           acc=base.acc.clone())
+                ms = device_ms(lambda: accept(st_t, *lanes))
+                plain_ms = device_ms(lambda: accept_reference(st_t, *lanes))
+                rows[B] = {"ms": ms, "plain_ms": plain_ms,
+                           "bytes": nbytes,
+                           "bound_ms": nbytes / hbm * 1e3}
+                info(f"accept B={B}: kernel {ms:.4f} ms, plain "
+                     f"{plain_ms:.4f} ms, bound {rows[B]['bound_ms']:.4f} "
+                     f"ms ({nbytes} B at {hbm / 1e12:.2f} TB/s), "
+                     f"{n_store} stores, bit-exact")
+            del st_k, st_r
+        del base
+    torch.cuda.empty_cache()
+    return rows, max_err
+
+
+def _same(a, b, what):
+    """Equal results (nested tuples / dicts of arrays), or raise."""
+    if isinstance(a, dict):
+        for k in a:
+            _same(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, tuple):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{what}[{i}]")
+    elif not np.array_equal(np.asarray(a), np.asarray(b)):
+        raise AssertionError(f"card != cpu: {what}")
+
+
+def phase_cpu_parity():
+    """The main path on the card against the same calls on the CPU,
+    where every wrapper runs its plain version (the path the CPU tests
+    hold against the JAX package): storm steps and SPI waves at a small
+    size, with duplicate groups, nacks and a preemption; every result
+    and every state plane must be equal."""
+    from gigapaxos_tpu_torch.ops.storm import decide_storm_step, make_fleet
+    from gigapaxos_tpu_torch.ops.types import state_to_numpy
+    from gigapaxos_tpu_torch.paxos.backend import ColumnarBackend
+    devs = ("cuda", "cpu")
+    G, W, R, B = 4096, 16, 3, 4096
+    rng = np.random.default_rng(11)
+    fleets = [make_fleet(G, W, R, device=d) for d in devs]
+    for step in range(4):
+        lanes = (rng.integers(0, G // 2, B).astype(np.int32),
+                 rng.integers(1, 1 << 30, B).astype(np.int32),
+                 rng.integers(-(1 << 30), 1 << 30, B).astype(np.int32),
+                 rng.random(B) < 0.9)
+        ns = [int(decide_storm_step(f, *(torch.from_numpy(a).to(d)
+                                         for a in lanes))[1])
+              for f, d in zip(fleets, devs)]
+        _same(ns[0], ns[1], f"storm step {step} decided")
+    for r in range(R):
+        _same(state_to_numpy(fleets[0][r]), state_to_numpy(fleets[1][r]),
+              f"storm replica {r}")
+
+    G, W, n = 512, 8, 400
+    bks = [ColumnarBackend(G, W, device=d) for d in devs]
+    rows = np.arange(n, dtype=np.int32)
+    members = rng.choice([1, 3, 5], n).astype(np.int32)
+    for b in bks:
+        b.create(rows, members, np.zeros(n, np.int32),
+                 np.zeros(n, np.int32), np.ones(n, bool))
+    for it in range(4):
+        g = rng.integers(0, G, 600, dtype=np.int32)  # inactive rows too
+        reqs = rng.integers(1, 1 << 62, 600).astype(np.uint64)
+        midx = np.zeros(600, np.int32)
+        ps = [b.propose_self(g, reqs, midx) for b in bks]
+        _same(ps[0], ps[1], f"spi {it} propose_self")
+        pr = ps[0][0]
+        sl = np.flatnonzero(pr.granted)
+        k = len(sl)
+        acked = rng.random(k) < 0.9
+        bal = np.where(acked | (rng.random(k) < 0.8), pr.cbal[sl],
+                       pr.cbal[sl] + (1 << 12))  # a few preempting nacks
+        rs = [b.accept_reply_commit_self(g[sl], pr.slot[sl], bal,
+                                         np.ones(k, np.int32), acked)
+              for b in bks]
+        _same(rs[0], rs[1], f"spi {it} reply_commit_self")
+        dec = rs[0][0].newly_decided
+        acs = [b.accept_commit(g[sl], pr.slot[sl], pr.cbal[sl], reqs[sl],
+                               g[sl][dec], pr.slot[sl][dec],
+                               reqs[sl][dec]) for b in bks]
+        _same(acs[0], acs[1], f"spi {it} accept_commit")
+        prr = [b.propose_self_reply(g, reqs ^ np.uint64(7), midx, g[sl],
+                                    pr.slot[sl], pr.cbal[sl],
+                                    np.full(k, 2, np.int32),
+                                    np.ones(k, bool)) for b in bks]
+        _same(prr[0], prr[1], f"spi {it} propose_self_reply")
+    sel = np.arange(0, 64, dtype=np.int32)
+    bals = np.full(64, (2 << 12) | 1, np.int32)
+    preps = [b.prepare(sel, bals) for b in bks]
+    _same(preps[0], preps[1], "spi prepare")
+    p = preps[0]
+    carry = (p.win_req_lo.view(np.uint32).astype(np.uint64) |
+             (p.win_req_hi.view(np.uint32).astype(np.uint64) << 32))
+    for b in bks:
+        b.install_coordinator(sel, bals, p.exec_cursor + 2, p.win_slot,
+                              carry)
+        b.set_cursor(sel[:8], np.full(8, 3, np.int32),
+                     np.full(8, 5, np.int32))
+        b.gc(sel, sel - 1)
+        b.delete(sel[60:])
+    _same(state_to_numpy(bks[0].state), state_to_numpy(bks[1].state),
+          "spi final state")
+    del fleets, bks
+    torch.cuda.empty_cache()
+
+
+# -- phase 3 -----------------------------------------------------------------
+
+
+def phase_storm():
+    from gigapaxos_tpu_torch.ops.accept_cuda import accept
+    from gigapaxos_tpu_torch.ops.storm import decide_storm_step, make_fleet
+    G, W, R, B = G_FULL, W_FULL, R_FULL, STORM_B
+    states = make_fleet(G, W, R)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    dev = torch.device("cuda")
+    cursor_want = torch.zeros(G, dtype=torch.int64, device=dev)
+    steps = []
+    for _ in range(STORM_STEPS):
+        g = torch.randint(0, G, (B,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        rlo = torch.randint(1, 1 << 30, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        rhi = torch.randint(1, 1 << 30, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        valid = torch.ones(B, dtype=torch.bool, device=dev)
+        steps.append((g, rlo, rhi, valid))
+    torch.cuda.synchronize()
+    accept.launches = 0
+    decided_total = 0
+    wall = 0.0
+    for i, (g, rlo, rhi, valid) in enumerate(steps):
+        t0 = time.perf_counter()
+        states, n = decide_storm_step(states, g, rlo, rhi, valid)
+        decided = int(n)  # synchronizes
+        wall += time.perf_counter() - t0
+        # granted == per group min(lanes, W): every earlier slot decided
+        per_group = torch.bincount(g.long(), minlength=G).clamp(max=W)
+        granted = int(per_group.sum())
+        cursor_want += per_group
+        if decided != granted:
+            raise AssertionError(f"storm step {i}: decided {decided} != "
+                                 f"granted {granted}")
+        decided_total += decided
+    launches = accept.launches
+    for r in range(R):
+        if not torch.equal(states[r].exec_cursor.long(), cursor_want):
+            raise AssertionError(f"storm: replica {r} exec_cursor differs "
+                                 "from the recount")
+        if r and not torch.equal(states[r].dec, states[0].dec):
+            raise AssertionError(f"storm: replica {r} dec plane differs")
+    del states
+    torch.cuda.empty_cache()
+    want = STORM_STEPS * R * 2
+    if launches != want:
+        raise AssertionError(f"storm: accept launches {launches} != {want}")
+    return {"decided": decided_total, "wall_s": wall,
+            "decisions_per_s": decided_total / wall, "launches": launches}
+
+
+# -- phase 4 -----------------------------------------------------------------
+
+
+def phase_spi():
+    from gigapaxos_tpu_torch.ops.accept_cuda import accept
+    from gigapaxos_tpu_torch.paxos.backend import ColumnarBackend, _chunks
+    G, W, B = G_FULL, W_FULL, SPI_B
+    bks = [ColumnarBackend(G, W) for _ in range(3)]
+    rows = np.arange(G, dtype=np.int32)
+    for r, b in enumerate(bks):
+        b.create(rows, np.full(G, 3, np.int32), np.zeros(G, np.int32),
+                 np.zeros(G, np.int32), np.full(G, r == 0))
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(1)
+    granted_rows = []
+    decided_total = granted_total = 0
+    want_launches = 0
+
+    def replies(g, pr, acks):
+        newly = np.zeros(len(g), np.int32)
+        for s in range(3):
+            rr = bks[0].accept_reply(g, pr.slot, pr.cbal,
+                                     np.full(len(g), s, np.int32), acks[s])
+            newly += rr.newly_decided
+        if newly.max(initial=0) > 1:
+            raise AssertionError("spi: a lane was decided twice")
+        if np.any((newly == 1) != pr.granted):
+            raise AssertionError("spi: granted lane not decided (or a "
+                                 "non-granted lane decided)")
+        return newly == 1
+
+    def wave(it):
+        g = rng.integers(0, G, B, dtype=np.int32)
+        reqs = np.uint64((it + 1) << 40) | rng.integers(
+            1, 1 << 31, B, dtype=np.int64).astype(np.uint64)
+        return g, reqs, bks[0].propose(g, reqs)
+
+    accept.launches = 0
+    t0 = time.perf_counter()
+    for it in range(SPI_ITERS):
+        g, reqs, pr = wave(it)
+        acks = []
+        for b in bks:
+            acks.append(b.accept(g, pr.slot, pr.cbal, reqs).acked &
+                        pr.granted)
+            want_launches += 2 * len(_chunks(B))
+        newly = replies(g, pr, acks)
+        for b in bks:
+            b.commit(g, pr.slot, reqs)
+        decided_total += int(newly.sum())
+        granted_total += int(pr.granted.sum())
+        granted_rows.append(g[pr.granted])
+    wall = time.perf_counter() - t0
+    plain_decided = decided_total
+    # fused acceptor waves: this wave's accepts ride with the previous
+    # wave's commits in one submit per replica
+    pending = (np.zeros(0, np.int32), np.zeros(0, np.int32),
+               np.zeros(0, np.uint64))
+    for it in range(SPI_ITERS, SPI_ITERS + SPI_FUSED_ITERS):
+        g, reqs, pr = wave(it)
+        waves = [b.accept_commit_submit(g, pr.slot, pr.cbal, reqs,
+                                        *pending) for b in bks]
+        acks = []
+        for wv in waves:
+            ares, cres = wv.collect()
+            if not cres.applied.all():
+                raise AssertionError("spi: fused commit not applied")
+            acks.append(ares.acked & pr.granted)
+            want_launches += 2 * len(_chunks(max(B, len(pending[0]))))
+        newly = replies(g, pr, acks)
+        pending = (g[newly], pr.slot[newly], reqs[newly])
+        decided_total += int(newly.sum())
+        granted_total += int(pr.granted.sum())
+        granted_rows.append(g[pr.granted])
+    for b in bks:
+        if not b.commit(*pending).applied.all():
+            raise AssertionError("spi: final commit not applied")
+    launches = accept.launches
+    if decided_total != granted_total:
+        raise AssertionError(f"spi: decided {decided_total} != granted "
+                             f"{granted_total}")
+    want_cursor = np.bincount(np.concatenate(granted_rows), minlength=G)
+    for r, b in enumerate(bks):
+        cur = b.state.exec_cursor.cpu().numpy()
+        if not np.array_equal(cur, want_cursor):
+            raise AssertionError(f"spi: replica {r} exec_cursor differs "
+                                 "from the recount")
+    if launches != want_launches:
+        raise AssertionError(f"spi: accept launches {launches} != "
+                             f"{want_launches}")
+    mem = bks[0].memory_info()
+    del bks
+    torch.cuda.empty_cache()
+    return {"decided": decided_total, "wall_s": wall,
+            "decisions_per_s": plain_decided / wall,
+            "launches": launches, "slab_bytes": mem["total_bytes"]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        return fail("no CUDA device (torch.cuda.is_available() is false)")
+    try:
+        from gigapaxos_tpu_torch.ops import _build
+    except ImportError as e:
+        return fail(f"the port is not beside this script: {e}")
+    try:
+        line = card_line()
+        info(f"card: {line}; torch {torch.__version__}, cuda "
+             f"{torch.version.cuda}, python {sys.version.split()[0]}")
+        t0 = time.perf_counter()
+        secs = _build.build_all()
+        info(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})}"
+             f" ({time.perf_counter() - t0:.2f} s wall, one nvcc a source)")
+        for name in secs:
+            for ln in _build.ptxas_report(name).splitlines():
+                if "registers" in ln or "spill" in ln:
+                    info(f"ptxas {name}: {ln.strip()}")
+
+        timing, max_err = phase_parity(line)
+        info(f"parity: accept kernel bit-identical to accept_reference at "
+             f"B={list(PARITY_BS)}, seeds {list(PARITY_SEEDS)}, "
+             f"G={G_FULL}, W={W_FULL}")
+        phase_cpu_parity()
+        info("parity: storm steps and SPI waves on the card bit-identical "
+             "to the same calls on the CPU (small size)")
+
+        storm = phase_storm()
+        info(f"storm: {storm['decided']} decisions in {STORM_STEPS} steps "
+             f"at B={STORM_B}, {storm['decisions_per_s']:.0f} decisions/s "
+             f"({line}); accept launches {storm['launches']}")
+        spi = phase_spi()
+        info(f"spi: {spi['decided']} decisions through 3 ColumnarBackend "
+             f"replicas at B={SPI_B}, {spi['decisions_per_s']:.0f} "
+             f"decisions/s over the plain waves ({line}); accept launches "
+             f"{spi['launches']}; slab {spi['slab_bytes']} B a replica")
+    except Exception as e:  # every phase's failure ends the run non-zero
+        import traceback
+        traceback.print_exc()
+        return fail(f"{type(e).__name__}: {e}")
+
+    big = timing[max(PARITY_BS)]
+    kernels = [{
+        "name": "accept",
+        "route": "cuda",
+        "source": "gigapaxos_tpu_torch/ops/csrc/accept.cu",
+        "replaces": "gigapaxos_tpu/ops/pallas_accept.py:165",
+        "launches": storm["launches"] + spi["launches"],
+        "launches_by_path": {"storm": storm["launches"],
+                             "spi": spi["launches"]},
+        "parity": "bit-exact",
+        "max_abs_err": max_err,
+        "lanes": max(PARITY_BS),
+        "ms": big["ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "by_lanes": {str(b): timing[b] for b in PARITY_BS},
+    }]
+    info(line)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,27 @@
+"""Columnar consensus kernels — the CUDA data plane.
+
+Port of ``gigapaxos_tpu.ops``: state for ALL groups lives in ``[G]`` /
+``[G, W, k]`` device tensors and each message type is one batched
+kernel over a struct-of-arrays packet batch (``kernels``), with the
+accept transition as a hand-written Hopper kernel (``accept_cuda``).
+"""
+
+from gigapaxos_tpu_torch.ops.types import (
+    ColumnarState,
+    make_state,
+    pack_ballot,
+    unpack_ballot,
+    NODE_BITS,
+    NO_BALLOT,
+)
+from gigapaxos_tpu_torch.ops import kernels
+
+__all__ = [
+    "ColumnarState",
+    "make_state",
+    "pack_ballot",
+    "unpack_ballot",
+    "NODE_BITS",
+    "NO_BALLOT",
+    "kernels",
+]

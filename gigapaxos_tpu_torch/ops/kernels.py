@@ -1,0 +1,559 @@
+"""Batched columnar paxos kernels, as torch tensor ops.
+
+Port of ``gigapaxos_tpu/ops/kernels.py``.  Each kernel is a plain
+function ``(state, batch tensors...) -> (state, outs)`` over the whole
+fleet's :class:`~gigapaxos_tpu_torch.ops.types.ColumnarState`.  Where
+the JAX package donates the state buffers and gets new arrays back,
+these functions write the state tensors IN PLACE and return the same
+state object, so the compositions (fused waves, the storm step) read
+exactly like the reference.
+
+A *batch* is a struct-of-arrays of B packet lanes (int32, bool
+``valid``); lanes with ``valid=False`` are padding and must not mutate
+state.  Reference analogs, the determinism note (a batch is ONE
+linearization: per-group ballot promises take the max over the batch)
+and the intra-batch preconditions (at most one accept lane per
+(group, slot), at most one accept-reply lane per (group, slot, sender)
+per batch) are those of the JAX module.
+
+How the XLA idioms map to torch, exactly:
+
+- ``.at[].max/.add(..., mode="drop")``: dead lanes are sent to row 0
+  with the reduction's identity (``INT32_MIN`` for max, 0 for add), so
+  no host sync is needed and the result is exact.
+- ``.at[].set(..., mode="drop")`` with a per-lane value: a boolean-mask
+  ``index_put_`` over the live lanes (one host sync on CUDA).  Sending
+  dead lanes to row 0 would race a live lane writing that row.
+- ``.at[].set(True/False)`` on the bool planes: a max/min scatter on
+  the ``uint8`` view, where the untouched value is the identity — exact,
+  and no sync.
+- ``jnp.lexsort((key2, key1))``: a stable sort on ``key2`` and then a
+  stable sort on ``key1`` (``key1`` is the primary key).
+- ``jax.lax.population_count``: a SWAR popcount in int32 (CPU torch has
+  no ``bitwise_count``).
+- ``jax.lax.cond(pre.any(), ...)`` in the reply's resign step: a masked
+  scatter with no branch (a branch on a CUDA tensor forces a sync).
+
+The accept transition (HOT LOOP #1) is not written here: it dispatches
+to :mod:`gigapaxos_tpu_torch.ops.accept_cuda`, the hand-written Hopper
+kernel on a CUDA device and its plain torch version on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from gigapaxos_tpu_torch.ops import accept_cuda
+from gigapaxos_tpu_torch.ops.types import (ACC_BAL, ACC_RHI, ACC_RLO,
+                                           ACC_SLOT, DEC_SLOT, EMITTED_BIT,
+                                           FIELDS, NO_BALLOT, NO_SLOT,
+                                           PROP_RHI, PROP_RLO, PROP_SLOT,
+                                           PROP_VOTES, VOTE_MASK,
+                                           ColumnarState)
+
+i32 = torch.int32
+INT32_MIN = accept_cuda.INT32_MIN
+
+
+def _majority(members):
+    return members // 2 + 1
+
+
+def _gi(g, valid):
+    """Gather index (int64): row 0 for invalid lanes (result unused)."""
+    return torch.where(valid, g, 0).long()
+
+
+def _iota(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(n, dtype=i32, device=like.device)
+
+
+def _scatter_max_(dst, gi, vals, live):
+    """``dst.at[g].max(vals)`` over live lanes."""
+    dst.scatter_reduce_(0, gi, torch.where(live, vals, INT32_MIN),
+                        reduce="amax")
+
+
+def _scatter_add_(dst, idx, vals, live):
+    """``dst.at[idx].add(vals)`` over live lanes (``idx`` int64)."""
+    dst.index_add_(0, torch.where(live, idx, 0),
+                   torch.where(live, vals, 0).to(dst.dtype))
+
+
+def _flag_(flags, gi, live, value: bool):
+    """``flags.at[g].set(value)`` over live lanes, as a max (True) or
+    min (False) scatter on the uint8 view: lanes outside ``live`` carry
+    the identity, so aliasing them onto a live row is harmless."""
+    u8 = flags.view(torch.uint8)
+    if value:
+        u8.scatter_reduce_(0, gi, live.to(torch.uint8), reduce="amax")
+    else:
+        u8.scatter_reduce_(0, gi, (~live).to(torch.uint8), reduce="amin")
+
+
+def _set_rows_(dst, gi, vals, live):
+    """``dst.at[g].set(vals)`` over live lanes (boolean-mask put)."""
+    dst[gi[live]] = vals[live]
+
+
+def _set_cols_(plane, gi, w, vals, live):
+    """``plane.at[g, w].set(vals)`` over live lanes (boolean-mask put);
+    ``vals`` is ``[..., k]`` for a ``[G, W, k]`` plane."""
+    plane[gi[live], w[live].long()] = vals[live]
+
+
+def _popcount(x):
+    """Bit count of non-negative int32 values (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x + (x >> 8) + (x >> 16) + (x >> 24)) & 0x3F
+
+
+def _run_rank(key1, key2):
+    """Rank of each lane within its equal-(key1, key2) run, in original
+    lane order (``kernels.py:_run_rank``: stable lexsort, key1 primary,
+    then a run-start cummax)."""
+    B = key1.shape[0]
+    o2 = torch.sort(key2, stable=True).indices
+    o1 = torch.sort(key1[o2], stable=True).indices
+    order = o2[o1]
+    k1, k2 = key1[order], key2[order]
+    iota = _iota(B, key1)
+    start = torch.ones(B, dtype=torch.bool, device=key1.device)
+    start[1:] = (k1[1:] != k1[:-1]) | (k2[1:] != k2[:-1])
+    run_start = torch.cummax(torch.where(start, iota, 0), 0).values
+    rank = torch.empty_like(iota)
+    rank[order] = iota - run_start
+    return rank
+
+
+# --------------------------------------------------------------------------
+# accept (acceptor side)                                  ref: PaxosAcceptor
+# --------------------------------------------------------------------------
+
+
+class AcceptOut(NamedTuple):
+    acked: torch.Tensor       # bool[B] pvalue stored (or stale-decided)
+    stale: torch.Tensor       # bool[B] slot < exec_cursor (already decided)
+    out_window: torch.Tensor  # bool[B] beyond window: host must requeue
+    cur_bal: torch.Tensor     # i32[B]  promised ballot after this batch
+
+
+def accept_batch(state: ColumnarState, g, slot, bal, rlo, rhi, valid):
+    """Through the accept kernel (``accept_cuda.accept``)."""
+    out = accept_cuda.accept(state, g, slot, bal, rlo, rhi, valid)
+    return state, AcceptOut(out[0] != 0, out[1] != 0, out[2] != 0, out[3])
+
+
+# --------------------------------------------------------------------------
+# accept-reply (coordinator side)            ref: PaxosCoordinator majority
+# --------------------------------------------------------------------------
+
+
+class AcceptReplyOut(NamedTuple):
+    newly_decided: torch.Tensor  # bool[B] quorum crossed: emit a commit
+    preempted: torch.Tensor      # bool[B] coordinator resigned
+    dec_slot: torch.Tensor       # i32[B]  slot of the decision
+    dec_bal: torch.Tensor        # i32[B]  coordinator ballot
+    req_lo: torch.Tensor         # i32[B]  request id of the decided pvalue
+    req_hi: torch.Tensor
+
+
+def accept_reply_batch(state: ColumnarState, g, slot, bal, sender, acked,
+                       valid):
+    """Handle (batched) accept replies: ``bal`` is the accepted ballot on
+    ack lanes and the acceptor's (higher) promise on nack lanes."""
+    W = state.W
+    gi = _gi(g, valid)
+    w = torch.where(valid, slot % W, 0).long()
+
+    coord_here = state.is_coord[gi] & state.coord_active[gi]
+    cbal = state.cbal[gi]
+    is_rel = valid & coord_here & (bal == cbal)
+    propc = state.prop[gi, w]  # [B, 4] pre-batch proposal columns
+    match = is_rel & acked & (slot >= 0) & (propc[:, PROP_SLOT] == slot)
+
+    sender_i = sender.to(i32)
+    bit = torch.ones_like(sender_i) << sender_i
+    prev = propc[:, PROP_VOTES]
+    fresh = match & (((prev >> sender_i) & 1) == 0)
+    votes = state.prop.view(-1)
+    flat = (gi * W + w) * 4 + PROP_VOTES
+    _scatter_add_(votes, flat, bit, fresh)
+
+    # re-gather POST-scatter: every lane of a column sees the whole
+    # batch's votes; `fresh` never adds a bit twice (no carry into
+    # EMITTED_BIT)
+    newv = votes[flat]
+    cnt = _popcount(newv & VOTE_MASK)
+    quorum = match & (cnt >= _majority(state.members[gi]))
+    iota = _iota(g.shape[0], g)
+    dup_before = quorum & (_run_rank(torch.where(quorum, g, -1),
+                                     torch.where(quorum, slot, iota)) > 0)
+    emitted_prev = (prev & EMITTED_BIT) != 0
+    newly = quorum & ~emitted_prev & ~dup_before
+    _scatter_add_(votes, flat, torch.full_like(prev, EMITTED_BIT), newly)
+
+    # preemption: a nack above our ballot ends our reign
+    pre = valid & state.is_coord[gi] & ~acked & (bal > cbal)
+    _flag_(state.is_coord, gi, pre, False)
+    _flag_(state.coord_active, gi, pre, False)
+
+    out = AcceptReplyOut(
+        newly_decided=newly,
+        preempted=pre,
+        dec_slot=slot,
+        dec_bal=cbal,
+        req_lo=propc[:, PROP_RLO],
+        req_hi=propc[:, PROP_RHI],
+    )
+    return state, out
+
+
+# --------------------------------------------------------------------------
+# propose (coordinator slot assignment)         ref: PaxosCoordinator.propose
+# --------------------------------------------------------------------------
+
+
+class ProposeOut(NamedTuple):
+    granted: torch.Tensor    # bool[B] slot assigned; emit AcceptPackets
+    rejected: torch.Tensor   # bool[B] not coordinator here (host forwards)
+    throttled: torch.Tensor  # bool[B] window full: host requeues
+    slot: torch.Tensor       # i32[B]  assigned slot
+    cbal: torch.Tensor       # i32[B]  coordinator ballot for the accept
+
+
+def propose_batch(state: ColumnarState, g, rlo, rhi, valid):
+    """Assign contiguous slots to new requests, several per group per
+    batch: lane i gets ``next_slot[g] + rank_i`` (its occurrence index
+    among same-group lanes)."""
+    W = state.W
+    gi = _gi(g, valid)
+    act = state.active[gi]
+    coord = state.is_coord[gi] & state.coord_active[gi]
+    can = valid & act & coord
+
+    iota = _iota(g.shape[0], g)
+    rank = _run_rank(torch.where(can, g, -1), torch.where(can, 0, iota))
+
+    slot = state.next_slot[gi] + rank
+    in_win = slot < state.exec_cursor[gi] + W
+    granted = can & in_win
+    cbal = state.cbal[gi]
+
+    _scatter_add_(state.next_slot, gi, torch.ones_like(slot), granted)
+    w = torch.where(granted, slot % W, 0)
+    _set_cols_(state.prop, gi, w, torch.stack(
+        [slot, rlo, rhi, torch.zeros_like(slot)], dim=-1), granted)
+
+    out = ProposeOut(
+        granted=granted,
+        rejected=valid & act & ~coord,
+        throttled=can & ~in_win,
+        slot=slot,
+        cbal=cbal,
+    )
+    return state, out
+
+
+# --------------------------------------------------------------------------
+# commit / decision                        ref: decision handling + window GC
+# --------------------------------------------------------------------------
+
+
+class CommitOut(NamedTuple):
+    applied: torch.Tensor     # bool[B] decision recorded
+    stale: torch.Tensor       # bool[B] already below exec_cursor
+    out_window: torch.Tensor  # bool[B] host must requeue
+    new_cursor: torch.Tensor  # i32[B]  group frontier after this batch
+
+
+def commit_batch(state: ColumnarState, g, slot, rlo, rhi, valid):
+    W = state.W
+    gi = _gi(g, valid)
+    act = state.active[gi]
+    cursor = state.exec_cursor[gi]
+
+    stale = valid & act & (slot < cursor)
+    in_win = (slot >= cursor) & (slot < cursor + W)
+    store = valid & act & in_win
+    w = torch.where(store, slot % W, 0)
+    _set_cols_(state.dec, gi, w, torch.stack([slot, rlo, rhi], dim=-1),
+               store)
+
+    # contiguity advance over the touched rows only ([B, W] gathers)
+    dslotr = state.dec[gi, :, DEC_SLOT]
+    want = cursor[:, None] + _iota(W, g)[None, :]
+    ok = torch.gather(dslotr, 1, (want % W).long()) == want
+    adv = torch.cumprod(ok.to(i32), dim=1, dtype=i32).sum(dim=1, dtype=i32)
+    _scatter_max_(state.exec_cursor, gi, cursor + adv, store)
+
+    out = CommitOut(
+        applied=store,
+        stale=stale,
+        out_window=valid & act & (slot >= cursor + W),
+        new_cursor=state.exec_cursor[gi],
+    )
+    return state, out
+
+
+# --------------------------------------------------------------------------
+# prepare (acceptor side)                    ref: PaxosAcceptor.handlePrepare
+# --------------------------------------------------------------------------
+
+
+class PrepareOut(NamedTuple):
+    acked: torch.Tensor        # bool[B]
+    cur_bal: torch.Tensor      # i32[B] promise after batch
+    exec_cursor: torch.Tensor  # i32[B]
+    win_slot: torch.Tensor     # i32[B,W] accepted-pvalue window
+    win_bal: torch.Tensor      # i32[B,W]
+    win_req_lo: torch.Tensor   # i32[B,W]
+    win_req_hi: torch.Tensor   # i32[B,W]
+
+
+def prepare_batch(state: ColumnarState, g, bal, valid):
+    """Phase-1 prepare: promise update + dense gather of the accepted
+    window."""
+    gi = _gi(g, valid)
+    live = valid & state.active[gi]
+    _scatter_max_(state.bal, gi, bal, live)
+    cur_bal = state.bal[gi]
+    accr = state.acc[gi]  # [B, W, 4]
+    out = PrepareOut(
+        acked=live & (bal >= cur_bal),
+        cur_bal=cur_bal,
+        exec_cursor=state.exec_cursor[gi],
+        win_slot=accr[..., ACC_SLOT],
+        win_bal=accr[..., ACC_BAL],
+        win_req_lo=accr[..., ACC_RLO],
+        win_req_hi=accr[..., ACC_RHI],
+    )
+    return state, out
+
+
+# --------------------------------------------------------------------------
+# coordinator install (phase-1 completion + carryover)
+# --------------------------------------------------------------------------
+
+
+def install_coordinator_batch(state: ColumnarState, g, cbal, next_slot,
+                              carry_slot, carry_rlo, carry_rhi, valid):
+    """Install this node as active coordinator for groups ``g`` at ballot
+    ``cbal``; ``carry_*`` are ``[B, W]`` carryover pvalues (columns with
+    ``carry_slot == -1`` are empty)."""
+    W = state.W
+    gi = _gi(g, valid)
+    _flag_(state.is_coord, gi, valid, True)
+    _flag_(state.coord_active, gi, valid, True)
+    _set_rows_(state.cbal, gi, cbal, valid)
+    _set_rows_(state.next_slot, gi, next_slot, valid)
+
+    has = valid[:, None] & (carry_slot >= 0)
+    w = torch.where(has, carry_slot % W, 0)
+    _set_cols_(state.prop, gi[:, None].expand_as(carry_slot), w,
+               torch.stack([carry_slot, carry_rlo, carry_rhi,
+                            torch.zeros_like(carry_slot)], dim=-1), has)
+    return state, None
+
+
+# --------------------------------------------------------------------------
+# group lifecycle                     ref: PaxosManager.createPaxosInstance
+# --------------------------------------------------------------------------
+
+
+def create_groups_batch(state: ColumnarState, rows, members, version,
+                        init_bal, self_coord, valid):
+    """(Re)initialize rows for newly created groups (see the JAX
+    docstring: every replica starts promised to ``init_bal``)."""
+    r = rows[valid].long()
+    sc = self_coord[valid]
+    ib = init_bal[valid]
+    dev = rows.device
+
+    def cols(v):
+        return torch.tensor(v, dtype=i32, device=dev)
+
+    state.active[r] = True
+    state.members[r] = members[valid].to(i32)
+    state.version[r] = version[valid].to(i32)
+    state.bal[r] = ib
+    state.acc[r] = cols([NO_SLOT, NO_BALLOT, 0, 0])
+    state.dec[r] = cols([NO_SLOT, 0, 0])
+    state.exec_cursor[r] = 0
+    state.gc_slot[r] = NO_SLOT
+    state.is_coord[r] = sc
+    state.coord_active[r] = sc
+    state.cbal[r] = torch.where(sc, ib, NO_BALLOT)
+    state.next_slot[r] = 0
+    state.prep_votes[r] = 0
+    state.prop[r] = cols([NO_SLOT, 0, 0, 0])
+    return state, None
+
+
+def delete_groups_batch(state: ColumnarState, rows, valid):
+    r = rows[valid].long()
+    state.active[r] = False
+    state.is_coord[r] = False
+    state.coord_active[r] = False
+    return state, None
+
+
+def set_cursor_batch(state: ColumnarState, rows, cursor, next_slot, valid):
+    """Restore execution frontier on recovery/unpause."""
+    gi = _gi(rows, valid)
+    _set_rows_(state.exec_cursor, gi, cursor, valid)
+    _scatter_max_(state.next_slot, gi, next_slot, valid)
+    return state, None
+
+
+def gc_batch(state: ColumnarState, rows, upto, valid):
+    """Record checkpoint slot (log below it is GC-eligible host-side)."""
+    _scatter_max_(state.gc_slot, _gi(rows, valid), upto, valid)
+    return state, None
+
+
+# --------------------------------------------------------------------------
+# row export/import (pause/unpause, debugging)
+# --------------------------------------------------------------------------
+
+
+def gather_rows(state: ColumnarState, rows) -> ColumnarState:
+    """Full per-row state for ``rows`` as a state of [B, ...] tensors."""
+    r = rows.long()
+    return ColumnarState(**{f: t[r] for f, t in state.items()})
+
+
+def scatter_rows(state: ColumnarState, rows, row_state: ColumnarState,
+                 valid):
+    """Write previously gathered rows back (unpause)."""
+    r = rows[valid].long()
+    for f in FIELDS:
+        getattr(state, f)[r] = getattr(row_state, f)[valid]
+    return state, None
+
+
+# --------------------------------------------------------------------------
+# packed wrappers: ONE [k, B] i32 input and ONE [k, B] i32 output per call
+# (the layouts of the JAX module's packed entry points, row for row)
+# --------------------------------------------------------------------------
+
+
+def _i(b):
+    return b.to(i32)
+
+
+def propose_packed(state: ColumnarState, packed):
+    """packed[4, B]: g, rlo, rhi, valid -> out[5, B]: granted, rejected,
+    throttled, slot, cbal."""
+    state, o = propose_batch(state, packed[0], packed[1], packed[2],
+                             packed[3] != 0)
+    return state, torch.stack([_i(o.granted), _i(o.rejected),
+                               _i(o.throttled), o.slot, o.cbal])
+
+
+def accept_packed(state: ColumnarState, packed):
+    """packed[6, B]: g, slot, bal, rlo, rhi, valid -> out[4, B]: acked,
+    stale, out_window, cur_bal (the accept kernel's own output)."""
+    return state, accept_cuda.accept(state, packed[0], packed[1],
+                                     packed[2], packed[3], packed[4],
+                                     packed[5] != 0)
+
+
+def accept_reply_packed(state: ColumnarState, packed):
+    """packed[6, B]: g, slot, bal, sender, acked, valid -> out[6, B]:
+    newly_decided, preempted, dec_bal, req_lo, req_hi, dec_slot."""
+    state, o = accept_reply_batch(state, packed[0], packed[1], packed[2],
+                                  packed[3], packed[4] != 0,
+                                  packed[5] != 0)
+    return state, torch.stack([_i(o.newly_decided), _i(o.preempted),
+                               o.dec_bal, o.req_lo, o.req_hi, o.dec_slot])
+
+
+def propose_accept_self_packed(state: ColumnarState, packed):
+    """packed[5, B]: g, rlo, rhi, self_member_idx, valid -> out[9, B]:
+    granted, rejected, throttled, slot, cbal, self_acked,
+    newly_decided, preempted, acc_cur_bal.  Propose + this node's own
+    accept + its own vote, in that order."""
+    g, rlo, rhi, smidx = packed[0], packed[1], packed[2], packed[3]
+    valid = packed[4] != 0
+    state, po = propose_batch(state, g, rlo, rhi, valid)
+    gr = valid & po.granted
+    state, ao = accept_batch(state, g, po.slot, po.cbal, rlo, rhi, gr)
+    reply_bal = torch.where(ao.acked, po.cbal, ao.cur_bal)
+    state, ro = accept_reply_batch(state, g, po.slot, reply_bal, smidx,
+                                   ao.acked, gr)
+    return state, torch.stack([
+        _i(po.granted), _i(po.rejected), _i(po.throttled), po.slot,
+        po.cbal, _i(gr & ao.acked), _i(ro.newly_decided),
+        _i(ro.preempted), ao.cur_bal])
+
+
+def accept_reply_commit_self_packed(state: ColumnarState, packed):
+    """packed[6, B]: g, slot, bal, sender_midx, acked, valid ->
+    out[9, B]: newly_decided, preempted, dec_bal, req_lo, req_hi,
+    dec_slot, applied, stale, new_cursor.  Vote, then own commit."""
+    g = packed[0]
+    state, ro = accept_reply_batch(state, g, packed[1], packed[2],
+                                   packed[3], packed[4] != 0,
+                                   packed[5] != 0)
+    state, co = commit_batch(state, g, ro.dec_slot, ro.req_lo,
+                             ro.req_hi, ro.newly_decided)
+    return state, torch.stack([
+        _i(ro.newly_decided), _i(ro.preempted), ro.dec_bal, ro.req_lo,
+        ro.req_hi, ro.dec_slot, _i(co.applied), _i(co.stale),
+        co.new_cursor])
+
+
+def commit_packed(state: ColumnarState, packed):
+    """packed[5, B]: g, slot, rlo, rhi, valid -> out[4, B]: applied,
+    stale, out_window, new_cursor."""
+    state, o = commit_batch(state, packed[0], packed[1], packed[2],
+                            packed[3], packed[4] != 0)
+    return state, torch.stack([_i(o.applied), _i(o.stale),
+                               _i(o.out_window), o.new_cursor])
+
+
+def request_reply_packed(state: ColumnarState, req, rep):
+    """Fused coordinator wave: :func:`propose_accept_self_packed` then
+    :func:`accept_reply_commit_self_packed` (they touch disjoint window
+    columns — see the JAX docstring)."""
+    state, pout = propose_accept_self_packed(state, req)
+    state, rout = accept_reply_commit_self_packed(state, rep)
+    return state, pout, rout
+
+
+def accept_commit_packed(state: ColumnarState, acc, com):
+    """Fused acceptor wave: accepts, then commits, in the order the
+    manager's handlers run them."""
+    state, aout = accept_packed(state, acc)
+    state, cout = commit_packed(state, com)
+    return state, aout, cout
+
+
+# --------------------------------------------------------------------------
+# entry points: the JAX package's jit names, as plain functions (torch
+# runs eagerly; the state is updated in place instead of donated)
+# --------------------------------------------------------------------------
+
+accept = accept_batch
+accept_reply = accept_reply_batch
+propose = propose_batch
+commit = commit_batch
+propose_p = propose_packed
+propose_accept_self_p = propose_accept_self_packed
+accept_reply_commit_self_p = accept_reply_commit_self_packed
+accept_p = accept_packed
+accept_reply_p = accept_reply_packed
+commit_p = commit_packed
+accept_commit_p = accept_commit_packed
+request_reply_p = request_reply_packed
+prepare = prepare_batch
+install_coordinator = install_coordinator_batch
+create_groups = create_groups_batch
+delete_groups = delete_groups_batch
+set_cursor = set_cursor_batch
+gc = gc_batch

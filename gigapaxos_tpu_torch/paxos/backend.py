@@ -1,0 +1,933 @@
+"""AcceptorBackend SPI: pluggable consensus data planes, on torch.
+
+Port of ``gigapaxos_tpu/paxos/backend.py``.  The node runtime drives all
+acceptor/coordinator state transitions through this batch-level
+interface; this module carries two engines:
+
+- :class:`ScalarBackend` — one Python object per group
+  (``ops.oracle.OracleGroup``), looping over batch items: the reference
+  architecture's stand-in and the per-item oracle.
+- :class:`ColumnarBackend` — the columnar kernels (``ops.kernels``) over
+  ``[G, W]`` tensors on one device, with the JAX engine's bucket ladder
+  and chunking, every accept through the hand-written accept kernel,
+  and non-blocking submit/collect waves (CUDA stream + pinned host
+  buffers + an event).
+
+All SPI inputs/outputs are numpy arrays (host-side), as in the JAX
+package.  Not ported in this slice: ``NativeBackend``,
+``ShardedColumnarBackend`` and the compile ledger (torch does not jit).
+"""
+
+from __future__ import annotations
+
+import abc
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gigapaxos_tpu_torch.ops import accept_cuda, kernels
+from gigapaxos_tpu_torch.ops.oracle import (OracleGroup, PValue,
+                                            make_oracle_group)
+from gigapaxos_tpu_torch.ops.types import (FIELDS, NO_BALLOT, NO_SLOT,
+                                           make_state, resolve_device,
+                                           state_from_numpy,
+                                           state_to_numpy)
+from gigapaxos_tpu_torch.utils.instrument import RequestInstrumenter
+from gigapaxos_tpu_torch.utils.profiler import DelayProfiler
+
+
+class AcceptRes(NamedTuple):
+    acked: np.ndarray
+    stale: np.ndarray
+    out_window: np.ndarray
+    cur_bal: np.ndarray
+
+
+class AcceptReplyRes(NamedTuple):
+    newly_decided: np.ndarray
+    preempted: np.ndarray
+    req_lo: np.ndarray
+    req_hi: np.ndarray
+    dec_bal: np.ndarray
+
+
+class ProposeRes(NamedTuple):
+    granted: np.ndarray
+    rejected: np.ndarray
+    throttled: np.ndarray
+    slot: np.ndarray
+    cbal: np.ndarray
+
+
+class CommitRes(NamedTuple):
+    applied: np.ndarray
+    stale: np.ndarray
+    out_window: np.ndarray
+    new_cursor: np.ndarray
+
+
+class PrepareRes(NamedTuple):
+    acked: np.ndarray
+    cur_bal: np.ndarray
+    exec_cursor: np.ndarray
+    win_slot: np.ndarray    # [B, W]
+    win_bal: np.ndarray
+    win_req_lo: np.ndarray
+    win_req_hi: np.ndarray
+
+
+def _split64(req: np.ndarray):
+    """u64/int64 request-id array -> (lo32, hi32) int32 views."""
+    req = np.ascontiguousarray(req, np.uint64)
+    lo = (req & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    hi = (req >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    return lo, hi
+
+
+def _join64(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    return (lo.view(np.uint32).astype(np.uint64) |
+            (hi.view(np.uint32).astype(np.uint64) << np.uint64(32)))
+
+
+class AcceptorBackend(abc.ABC):
+    """Batch-level consensus state-transition engine for all groups of one
+    node.  Rows are the dense indices from ``GroupTable``."""
+
+    @property
+    @abc.abstractmethod
+    def window(self) -> int: ...
+
+    @abc.abstractmethod
+    def create(self, rows, members, versions, init_bal, self_coord): ...
+
+    @abc.abstractmethod
+    def delete(self, rows): ...
+
+    @abc.abstractmethod
+    def accept(self, rows, slots, bals, req_ids) -> AcceptRes: ...
+
+    @abc.abstractmethod
+    def accept_reply(self, rows, slots, bals, senders, acked
+                     ) -> AcceptReplyRes: ...
+
+    @abc.abstractmethod
+    def propose(self, rows, req_ids) -> ProposeRes: ...
+
+    @abc.abstractmethod
+    def commit(self, rows, slots, req_ids) -> CommitRes: ...
+
+    @abc.abstractmethod
+    def prepare(self, rows, bals) -> PrepareRes: ...
+
+    @abc.abstractmethod
+    def install_coordinator(self, rows, cbals, next_slots, carry_slot,
+                            carry_req) -> None: ...
+
+    @abc.abstractmethod
+    def set_cursor(self, rows, cursors, next_slots) -> None: ...
+
+    @abc.abstractmethod
+    def gc(self, rows, upto) -> None: ...
+
+    @abc.abstractmethod
+    def cursor_of(self, row: int) -> int: ...
+
+    @abc.abstractmethod
+    def snapshot_row(self, row: int) -> dict:
+        """Serializable per-row hot state (pause; ref HotRestoreInfo)."""
+
+    @abc.abstractmethod
+    def restore_row(self, row: int, snap: dict) -> None: ...
+
+    def snapshot_rows(self, rows) -> List[dict]:
+        """Batched snapshot (deactivator sweeps); backends override when
+        they can gather many rows in one device round trip."""
+        return [self.snapshot_row(int(r)) for r in rows]
+
+    @staticmethod
+    def gate_acks(res: AcceptRes) -> AcceptRes:
+        """Withdraw every ack in an accept result: the durability
+        barrier AFTER the engine call failed (WAL impaired), so the
+        on-device votes must not be reported to any coordinator — a
+        quorum counting a non-fsynced vote breaks no_lost_acks.  The
+        replies go out nacked at the acceptor's current ballot (the
+        coordinator simply never counts this acceptor; the vote stays
+        inert on-device and is re-persisted if the slot is re-driven).
+        Pure SPI-surface helper: no backend state is touched."""
+        return res._replace(acked=np.zeros_like(np.asarray(res.acked)))
+
+    def inspect_rows(self, rows) -> Dict[str, np.ndarray]:
+        """Device-truth consensus cursors for the introspection plane
+        (``GET /groups``): promised ballot, coordinator ballot, next
+        proposal slot, exec cursor — per row, as parallel arrays.
+        Default goes through the (heavier) snapshot path; the columnar
+        backend overrides with one gather + one transfer."""
+        snaps = self.snapshot_rows(np.asarray(rows, np.int64))
+
+        def field(s: dict, key: str, scal_idx: int, default: int) -> int:
+            # the native store packs its per-row scalars into `scal`
+            # ([bal, cbal, exec_cursor, next_slot, ...]); the scalar
+            # oracle snapshot carries named keys
+            if "scal" in s:
+                return int(s["scal"][scal_idx])
+            return int(s.get(key, default))
+
+        return {
+            "bal": np.asarray(
+                [field(s, "bal", 0, -1) for s in snaps], np.int64),
+            "cbal": np.asarray(
+                [field(s, "cbal", 1, -1) for s in snaps], np.int64),
+            "next_slot": np.asarray(
+                [field(s, "next_slot", 3, 0) for s in snaps], np.int64),
+            "exec_cursor": np.asarray(
+                [field(s, "exec_cursor", 2, 0) for s in snaps],
+                np.int64),
+        }
+
+    engine_platform = "cpu"  # overridden by device-resident backends
+    engine_mesh = "off"  # device-mesh size when group-axis sharded
+
+    def memory_info(self) -> Optional[dict]:
+        """Slab memory accounting (``GET /engine``): per-plane bytes,
+        bytes/group, and a max-groups capacity estimate.  None for
+        backends without device-resident slabs (scalar/native)."""
+        return None
+
+    def row_ownership(self) -> Optional[dict]:
+        """Active-row counts per engine shard / mesh device (the device
+        axis of the lane-balance view); None when not applicable."""
+        return None
+
+    def kernel_costs(self) -> Dict[str, dict]:
+        """Compiled-HLO cost analysis (flops / bytes accessed) per hot
+        kernel; empty for non-jit backends."""
+        return {}
+
+    def accept_commit(self, rows_a, slots_a, bals_a, reqs_a,
+                      rows_c, slots_c, reqs_c
+                      ) -> Tuple[AcceptRes, CommitRes]:
+        """Fused acceptor wave: accepts then commits, in the order the
+        manager's handlers run them.  Default is the two plain calls
+        (scalar/native semantics are already per-item); the columnar
+        backend overrides with ONE device dispatch."""
+        return (self.accept(rows_a, slots_a, bals_a, reqs_a),
+                self.commit(rows_c, slots_c, reqs_c))
+
+
+# --------------------------------------------------------------------------
+# scalar backend (baseline / trickle-traffic path)
+# --------------------------------------------------------------------------
+
+
+class ScalarBackend(AcceptorBackend):
+    """Per-instance Python objects; the reference-architecture stand-in."""
+
+    def __init__(self, window: int = 16):
+        self._window = window
+        self.groups: Dict[int, OracleGroup] = {}
+
+    @property
+    def window(self) -> int:
+        return self._window
+
+    def _g(self, row: int) -> Optional[OracleGroup]:
+        return self.groups.get(int(row))
+
+    def create(self, rows, members, versions, init_bal, self_coord):
+        for i in range(len(rows)):
+            self.groups[int(rows[i])] = make_oracle_group(
+                int(members[i]), self._window, int(init_bal[i]),
+                bool(self_coord[i]), int(versions[i]))
+
+    def delete(self, rows):
+        for r in rows:
+            self.groups.pop(int(r), None)
+
+    def accept(self, rows, slots, bals, req_ids) -> AcceptRes:
+        n = len(rows)
+        acked = np.zeros(n, bool)
+        stale = np.zeros(n, bool)
+        ow = np.zeros(n, bool)
+        cur = np.full(n, NO_BALLOT, np.int32)
+        for i in range(n):
+            g = self._g(rows[i])
+            if g is None:
+                continue
+            acked[i], stale[i], ow[i], cur[i] = g.accept(
+                int(slots[i]), int(bals[i]), int(req_ids[i]))
+        return AcceptRes(acked, stale, ow, cur)
+
+    def accept_reply(self, rows, slots, bals, senders, acked
+                     ) -> AcceptReplyRes:
+        n = len(rows)
+        newly = np.zeros(n, bool)
+        pre = np.zeros(n, bool)
+        rlo = np.zeros(n, np.int32)
+        rhi = np.zeros(n, np.int32)
+        dbal = np.full(n, NO_BALLOT, np.int32)
+        for i in range(n):
+            g = self._g(rows[i])
+            if g is None:
+                continue
+            nd, p, req = g.accept_reply(int(slots[i]), int(bals[i]),
+                                        int(senders[i]), bool(acked[i]))
+            newly[i], pre[i] = nd, p
+            if nd:
+                dbal[i] = g.cbal
+                r = np.asarray([req], np.uint64)
+                lo, hi = _split64(r)
+                rlo[i], rhi[i] = lo[0], hi[0]
+        return AcceptReplyRes(newly, pre, rlo, rhi, dbal)
+
+    def propose(self, rows, req_ids) -> ProposeRes:
+        n = len(rows)
+        granted = np.zeros(n, bool)
+        rejected = np.zeros(n, bool)
+        throttled = np.zeros(n, bool)
+        slot = np.full(n, NO_SLOT, np.int32)
+        cbal = np.full(n, NO_BALLOT, np.int32)
+        for i in range(n):
+            g = self._g(rows[i])
+            if g is None:
+                continue
+            st, s, cb = g.propose(int(req_ids[i]))
+            granted[i] = st == "granted"
+            rejected[i] = st == "rejected"
+            throttled[i] = st == "throttled"
+            slot[i], cbal[i] = s, cb
+        return ProposeRes(granted, rejected, throttled, slot, cbal)
+
+    def commit(self, rows, slots, req_ids) -> CommitRes:
+        n = len(rows)
+        applied = np.zeros(n, bool)
+        stale = np.zeros(n, bool)
+        ow = np.zeros(n, bool)
+        cur = np.zeros(n, np.int32)
+        for i in range(n):
+            g = self._g(rows[i])
+            if g is None:
+                continue
+            applied[i], stale[i], ow[i], cur[i] = g.commit(
+                int(slots[i]), int(req_ids[i]))
+        return CommitRes(applied, stale, ow, cur)
+
+    def prepare(self, rows, bals) -> PrepareRes:
+        n = len(rows)
+        W = self._window
+        acked = np.zeros(n, bool)
+        cur_bal = np.full(n, NO_BALLOT, np.int32)
+        cursor = np.zeros(n, np.int32)
+        ws = np.full((n, W), NO_SLOT, np.int32)
+        wb = np.full((n, W), NO_BALLOT, np.int32)
+        wl = np.zeros((n, W), np.int32)
+        wh = np.zeros((n, W), np.int32)
+        for i in range(n):
+            g = self._g(rows[i])
+            if g is None:
+                continue
+            a, cb, cu, pvs = g.prepare(int(bals[i]))
+            acked[i], cur_bal[i], cursor[i] = a, cb, cu
+            for j, pv in enumerate(pvs[:W]):
+                ws[i, j] = pv.slot
+                wb[i, j] = pv.bal
+                r = np.asarray([pv.req_id], np.uint64)
+                lo, hi = _split64(r)
+                wl[i, j], wh[i, j] = lo[0], hi[0]
+        return PrepareRes(acked, cur_bal, cursor, ws, wb, wl, wh)
+
+    def install_coordinator(self, rows, cbals, next_slots, carry_slot,
+                            carry_req) -> None:
+        for i in range(len(rows)):
+            g = self._g(rows[i])
+            if g is None:
+                continue
+            pvs = []
+            for j in range(carry_slot.shape[1]):
+                if carry_slot[i, j] >= 0:
+                    pvs.append(PValue(int(carry_slot[i, j]), 0,
+                                      int(carry_req[i, j])))
+            g.install_coordinator(int(cbals[i]), int(next_slots[i]), pvs)
+
+    def set_cursor(self, rows, cursors, next_slots) -> None:
+        for i in range(len(rows)):
+            g = self._g(rows[i])
+            if g is None:
+                continue
+            g.exec_cursor = int(cursors[i])
+            g.next_slot = max(g.next_slot, int(next_slots[i]))
+
+    def gc(self, rows, upto) -> None:
+        for i in range(len(rows)):
+            g = self._g(rows[i])
+            if g is not None:
+                g.garbage_collect(int(upto[i]))
+
+    def cursor_of(self, row: int) -> int:
+        g = self._g(row)
+        return g.exec_cursor if g else 0
+
+    def snapshot_row(self, row: int) -> dict:
+        g = self.groups[int(row)]
+        return {
+            "members": g.members, "version": g.version, "bal": g.bal,
+            "accepted": [(pv.slot, pv.bal, pv.req_id)
+                         for pv in g.accepted.values()],
+            "decided": list(g.decided.items()),
+            "exec_cursor": g.exec_cursor, "gc_slot": g.gc_slot,
+            "is_coord": g.is_coord, "coord_active": g.coord_active,
+            "cbal": g.cbal, "next_slot": g.next_slot,
+        }
+
+    def restore_row(self, row: int, snap: dict) -> None:
+        g = make_oracle_group(snap["members"], self._window, snap["bal"],
+                              False, snap["version"])
+        for s, b, r in snap["accepted"]:
+            g.accepted[s] = PValue(s, b, r)
+        g.decided = dict(snap["decided"])
+        g.exec_cursor = snap["exec_cursor"]
+        g.gc_slot = snap["gc_slot"]
+        g.is_coord = snap["is_coord"]
+        g.coord_active = snap["coord_active"]
+        g.cbal = snap["cbal"]
+        g.next_slot = snap["next_slot"]
+        self.groups[int(row)] = g
+
+
+# --------------------------------------------------------------------------
+# columnar backend (the CUDA data plane)
+# --------------------------------------------------------------------------
+
+
+_BUCKET_CAP = 4096  # largest bucket; bigger batches dispatch chunked
+
+
+def _bucket(n: int, lo: int = 8) -> int:
+    """Smallest 8**k * lo >= n, CLAMPED at ``_BUCKET_CAP``: the ladder is
+    exactly {8, 64, 512, 4096}, and larger batches split into
+    <=4096-lane chunks (:func:`_chunks`).  torch needs no jit bucket,
+    but the JAX engine pads and chunks this way, and chunk boundaries
+    are linearization points: the same ladder keeps the two engines'
+    states bit-identical."""
+    b = lo
+    while b < n and b < _BUCKET_CAP:
+        b <<= 3
+    return b
+
+
+def _chunks(n: int) -> List[Tuple[int, int]]:
+    """[lo, hi) slices of at most ``_BUCKET_CAP`` lanes covering ``n``
+    (a single slice for small batches; ``[(0, 0)]`` for empty input so
+    fused callers still get a lane-aligned dispatch)."""
+    if n <= _BUCKET_CAP:
+        return [(0, n)]
+    return [(at, min(at + _BUCKET_CAP, n))
+            for at in range(0, n, _BUCKET_CAP)]
+
+
+class EngineWave:
+    """Handle for an in-flight engine wave (the submit half of a
+    submit/collect pair).  ``collect()`` blocks until the results are
+    host-resident and returns the op's result tuple; call it exactly
+    once.  The submit already launched the kernels on the current CUDA
+    stream, queued the device->host copies into pinned buffers and
+    recorded an event behind them, so the wall spent inside ``collect``
+    is pure blocked-on-device time — recorded under the ``eng.collect``
+    DelayProfiler total, with the submit->collect gap (the overlap the
+    caller actually won) under ``eng.overlap``."""
+
+    __slots__ = ("_finish", "_n", "_submitted", "_wave")
+
+    def __init__(self, finish: Callable, n: int):
+        self._finish = finish
+        self._n = n
+        self._submitted = time.monotonic()
+        # bind the wave id at submit: collect may run after the worker
+        # thread has moved on to a later batch's wave
+        self._wave = RequestInstrumenter.current_wave()
+
+    def collect(self):
+        t0 = time.monotonic()
+        overlap = t0 - self._submitted
+        DelayProfiler.add_total("eng.overlap", overlap, self._n)
+        sp = RequestInstrumenter.span_begin(
+            "eng.collect", wave=self._wave, lanes=self._n,
+            overlap_s=round(overlap, 6))
+        res = self._finish()
+        RequestInstrumenter.span_end(sp)
+        DelayProfiler.update_total("eng.collect", t0, self._n)
+        DelayProfiler.update_delay("eng.wave", self._submitted)
+        return res
+
+
+def _collect_cols(outs: List[Tuple[torch.Tensor, int]],
+                  ready: Optional["torch.cuda.Event"]) -> np.ndarray:
+    """Wait for ``ready`` (the event recorded behind the device->host
+    copies; None on the CPU), then join the chunked [k, bucket] host
+    outputs into one [k, n] array."""
+    if ready is not None:
+        ready.synchronize()
+    parts = [o.numpy()[:, :m] for o, m in outs if m]
+    if len(parts) == 1:
+        return parts[0]
+    if not parts:  # zero live lanes: keep the [k, 0] shape
+        return outs[0][0].numpy()[:, :0]
+    return np.concatenate(parts, axis=1)
+
+
+class ColumnarBackend(AcceptorBackend):
+    """Columnar kernels over [G, W] torch tensors on one device.
+
+    Batches are padded to the bucket ladder {8, 64, 512, 4096} with
+    invalid lanes masked and split into <=4096-lane chunks, exactly as
+    the JAX engine does: chunk boundaries are linearization points, so
+    the same ladder keeps the two engines' states bit-identical.  Every
+    accept lane goes through the hand-written accept kernel on a CUDA
+    device (its plain torch version on the CPU).
+    """
+
+    def __init__(self, capacity: int, window: int = 16, device="cuda"):
+        self.device = resolve_device(device)
+        self.state = make_state(capacity, window, self.device)
+        self._window = window
+        self.capacity = capacity
+        self._cuda = self.device.type == "cuda"
+        self.engine_platform = self.device.type
+        if self._cuda:
+            # build the kernel at construction, not inside the first
+            # wave (an nvcc run mid-serving reads as a latency spike)
+            accept_cuda.accept.load()
+
+    @property
+    def window(self) -> int:
+        return self._window
+
+    # -- host <-> device helpers -------------------------------------------
+
+    def _dev(self, arr) -> torch.Tensor:
+        """Host array -> tensor on the engine's device."""
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _pad1(self, arr, fill, dtype=np.int32):
+        n = len(arr)
+        out = np.full(_bucket(n), fill, dtype)
+        out[:n] = arr
+        return self._dev(out)
+
+    def _valid(self, n):
+        v = np.zeros(_bucket(n), bool)
+        v[:n] = True
+        return self._dev(v)
+
+    def _packed(self, n, *cols, bucket=None):
+        """Stack batch columns into ONE padded [k, bucket] i32 tensor
+        with the valid mask as the last row — a single host->device
+        transfer per kernel call.  The staging buffer is fresh per wave
+        (on the CPU the tensor shares it)."""
+        b = bucket or _bucket(n)
+        out = np.empty((len(cols) + 1, b), np.int32)
+        for i, (col, fill) in enumerate(cols):
+            row = out[i]
+            row[:n] = col
+            row[n:] = fill
+        out[len(cols), :n] = 1  # valid mask
+        out[len(cols), n:] = 0
+        return self._dev(out)
+
+    def _d2h(self, out: torch.Tensor) -> torch.Tensor:
+        """Queue the device->host copy of a kernel output into a pinned
+        buffer without blocking; a CPU output is host-resident already."""
+        if not self._cuda:
+            return out
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        return host
+
+    def _fence(self) -> Optional["torch.cuda.Event"]:
+        """An event behind everything queued so far (None on the CPU)."""
+        if not self._cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _submit1(self, kern, n, cols):
+        """Launch a packed kernel over <=``_BUCKET_CAP``-lane chunks and
+        queue every chunk output's device->host copy; returns the chunk
+        list and the event behind it for :func:`_collect_cols`.  Chunks
+        apply sequentially (a per-chunk linearization, as in the JAX
+        engine)."""
+        t0 = time.monotonic()
+        sp = RequestInstrumenter.span_begin("eng.submit", lanes=n,
+                                            bucket=_bucket(min(
+                                                n, _BUCKET_CAP)))
+        cols = [(np.asarray(c), f) for c, f in cols]
+        outs = []
+        for a, bnd in _chunks(n):
+            m = bnd - a
+            _, o = kern(self.state, self._packed(
+                m, *[(c[a:bnd], f) for c, f in cols]))
+            outs.append((self._d2h(o), m))
+        ready = self._fence()
+        RequestInstrumenter.span_end(sp, chunks=len(outs))
+        DelayProfiler.update_total("eng.submit", t0, n)
+        return outs, ready
+
+    def _submit2(self, kern, n1, cols1, n2, cols2):
+        """Dual-input fused dispatch, chunked like :meth:`_submit1` with
+        BOTH inputs sharing one bucket per chunk."""
+        t0 = time.monotonic()
+        sp = RequestInstrumenter.span_begin("eng.submit",
+                                            lanes=n1 + n2, fused=True)
+        cols1 = [(np.asarray(c), f) for c, f in cols1]
+        cols2 = [(np.asarray(c), f) for c, f in cols2]
+        outs1, outs2 = [], []
+        for a, bnd in _chunks(max(n1, n2)):
+            a1, b1 = min(a, n1), min(bnd, n1)
+            a2, b2 = min(a, n2), min(bnd, n2)
+            b = _bucket(max(b1 - a1, b2 - a2))
+            _, o1, o2 = kern(
+                self.state,
+                self._packed(b1 - a1, *[(c[a1:b1], f) for c, f in cols1],
+                             bucket=b),
+                self._packed(b2 - a2, *[(c[a2:b2], f) for c, f in cols2],
+                             bucket=b))
+            outs1.append((self._d2h(o1), b1 - a1))
+            outs2.append((self._d2h(o2), b2 - a2))
+        ready = self._fence()
+        RequestInstrumenter.span_end(sp, chunks=len(outs1))
+        DelayProfiler.update_total("eng.submit", t0, n1 + n2)
+        return (outs1, outs2), ready
+
+    # -- ops ---------------------------------------------------------------
+
+    def create(self, rows, members, versions, init_bal, self_coord):
+        rows, members = np.asarray(rows), np.asarray(members)
+        versions, init_bal = np.asarray(versions), np.asarray(init_bal)
+        self_coord = np.asarray(self_coord)
+        for a, b in _chunks(len(rows)):
+            kernels.create_groups(
+                self.state, self._pad1(rows[a:b], 0),
+                self._pad1(members[a:b], 1), self._pad1(versions[a:b], 0),
+                self._pad1(init_bal[a:b], NO_BALLOT),
+                self._pad1(self_coord[a:b], False, bool),
+                self._valid(b - a))
+
+    def delete(self, rows):
+        rows = np.asarray(rows)
+        for a, b in _chunks(len(rows)):
+            kernels.delete_groups(self.state, self._pad1(rows[a:b], 0),
+                                  self._valid(b - a))
+
+    def accept_submit(self, rows, slots, bals, req_ids) -> EngineWave:
+        """Non-blocking accept wave through the accept kernel; the
+        blocking :meth:`accept` is this submit + an immediate collect."""
+        n = len(rows)
+        lo, hi = _split64(req_ids)
+        outs, ready = self._submit1(kernels.accept_p, n, [
+            (rows, 0), (slots, NO_SLOT), (bals, NO_BALLOT), (lo, 0),
+            (hi, 0)])
+
+        def finish():
+            out = _collect_cols(outs, ready)
+            return AcceptRes(out[0] != 0, out[1] != 0, out[2] != 0,
+                             out[3])
+        return EngineWave(finish, n)
+
+    def accept(self, rows, slots, bals, req_ids) -> AcceptRes:
+        return self.accept_submit(rows, slots, bals, req_ids).collect()
+
+    def accept_reply_submit(self, rows, slots, bals, senders, acked
+                            ) -> EngineWave:
+        n = len(rows)
+        outs, ready = self._submit1(kernels.accept_reply_p, n, [
+            (rows, 0), (slots, NO_SLOT), (bals, NO_BALLOT),
+            (senders, 0), (np.asarray(acked, np.int32), 0)])
+
+        def finish():
+            out = _collect_cols(outs, ready)
+            newly = out[0] != 0
+            # decision fields only meaningful on newly-decided lanes
+            return AcceptReplyRes(
+                newly, out[1] != 0, np.where(newly, out[3], 0),
+                np.where(newly, out[4], 0),
+                np.where(newly, out[2], NO_BALLOT))
+        return EngineWave(finish, n)
+
+    def accept_reply(self, rows, slots, bals, senders, acked
+                     ) -> AcceptReplyRes:
+        return self.accept_reply_submit(rows, slots, bals, senders,
+                                        acked).collect()
+
+    def propose(self, rows, req_ids) -> ProposeRes:
+        n = len(rows)
+        lo, hi = _split64(req_ids)
+        out = _collect_cols(*self._submit1(kernels.propose_p, n, [
+            (rows, 0), (lo, 0), (hi, 0)]))
+        granted = out[0] != 0
+        return ProposeRes(granted, out[1] != 0, out[2] != 0,
+                          np.where(granted, out[3], NO_SLOT), out[4])
+
+    def commit_submit(self, rows, slots, req_ids) -> EngineWave:
+        n = len(rows)
+        lo, hi = _split64(req_ids)
+        outs, ready = self._submit1(kernels.commit_p, n, [
+            (rows, 0), (slots, NO_SLOT), (lo, 0), (hi, 0)])
+
+        def finish():
+            out = _collect_cols(outs, ready)
+            return CommitRes(out[0] != 0, out[1] != 0, out[2] != 0,
+                             out[3])
+        return EngineWave(finish, n)
+
+    def commit(self, rows, slots, req_ids) -> CommitRes:
+        return self.commit_submit(rows, slots, req_ids).collect()
+
+    def accept_commit_submit(self, rows_a, slots_a, bals_a, reqs_a,
+                             rows_c, slots_c, reqs_c) -> EngineWave:
+        """ONE fused dispatch per chunk for the acceptor wave: accepts
+        then commits (``kernels.accept_commit_packed``)."""
+        na, nc = len(rows_a), len(rows_c)
+        lo_a, hi_a = _split64(reqs_a)
+        lo_c, hi_c = _split64(reqs_c)
+        (outs_a, outs_c), ready = self._submit2(
+            kernels.accept_commit_p,
+            na, [(rows_a, 0), (slots_a, NO_SLOT), (bals_a, NO_BALLOT),
+                 (lo_a, 0), (hi_a, 0)],
+            nc, [(rows_c, 0), (slots_c, NO_SLOT), (lo_c, 0),
+                 (hi_c, 0)])
+
+        def finish():
+            a = _collect_cols(outs_a, ready)
+            c = _collect_cols(outs_c, None)
+            return (AcceptRes(a[0] != 0, a[1] != 0, a[2] != 0, a[3]),
+                    CommitRes(c[0] != 0, c[1] != 0, c[2] != 0, c[3]))
+        return EngineWave(finish, na + nc)
+
+    def accept_commit(self, rows_a, slots_a, bals_a, reqs_a,
+                      rows_c, slots_c, reqs_c
+                      ) -> Tuple[AcceptRes, CommitRes]:
+        return self.accept_commit_submit(rows_a, slots_a, bals_a,
+                                         reqs_a, rows_c, slots_c,
+                                         reqs_c).collect()
+
+    def accept_reply_commit_self(self, rows, slots, bals, senders, acked
+                                 ) -> Tuple[AcceptReplyRes, np.ndarray,
+                                            np.ndarray]:
+        """Fused reply + own commit (see
+        ``kernels.accept_reply_commit_self_packed``).  Returns
+        (AcceptReplyRes, applied[B], stale[B])."""
+        n = len(rows)
+        out = _collect_cols(*self._submit1(
+            kernels.accept_reply_commit_self_p, n, [
+                (rows, 0), (slots, NO_SLOT), (bals, NO_BALLOT),
+                (senders, 0), (np.asarray(acked, np.int32), 0)]))
+        newly = out[0] != 0
+        res = AcceptReplyRes(
+            newly, out[1] != 0, np.where(newly, out[3], 0),
+            np.where(newly, out[4], 0),
+            np.where(newly, out[2], NO_BALLOT))
+        return res, out[6] != 0, out[7] != 0
+
+    def propose_self(self, rows, req_ids, self_midx):
+        """Fused propose + own accept + own vote (see
+        ``kernels.propose_accept_self_packed``).  Returns (ProposeRes,
+        self_acked[B], newly_decided[B], preempted[B], acc_cur_bal[B])."""
+        n = len(rows)
+        lo, hi = _split64(req_ids)
+        out = _collect_cols(*self._submit1(
+            kernels.propose_accept_self_p, n, [
+                (rows, 0), (lo, 0), (hi, 0), (self_midx, 0)]))
+        granted = out[0] != 0
+        pr = ProposeRes(granted, out[1] != 0, out[2] != 0,
+                        np.where(granted, out[3], NO_SLOT), out[4])
+        return pr, out[5] != 0, out[6] != 0, out[7] != 0, out[8]
+
+    def propose_self_reply_submit(self, rows_p, reqs_p, self_midx,
+                                  rows_r, slots_r, bals_r, senders_r,
+                                  acked_r) -> EngineWave:
+        """Fused coordinator wave (``kernels.request_reply_p``): new
+        proposals + accept replies of the same worker batch.
+        ``collect()`` returns what :meth:`propose_self` and
+        :meth:`accept_reply_commit_self` return, as a pair."""
+        np_, nr = len(rows_p), len(rows_r)
+        lo_p, hi_p = _split64(reqs_p)
+        (outs_p, outs_r), ready = self._submit2(
+            kernels.request_reply_p,
+            np_, [(rows_p, 0), (lo_p, 0), (hi_p, 0), (self_midx, 0)],
+            nr, [(rows_r, 0), (slots_r, NO_SLOT), (bals_r, NO_BALLOT),
+                 (senders_r, 0), (np.asarray(acked_r, np.int32), 0)])
+
+        def finish():
+            p = _collect_cols(outs_p, ready)
+            r = _collect_cols(outs_r, None)
+            granted = p[0] != 0
+            pres = (ProposeRes(granted, p[1] != 0, p[2] != 0,
+                               np.where(granted, p[3], NO_SLOT), p[4]),
+                    p[5] != 0, p[6] != 0, p[7] != 0, p[8])
+            newly = r[0] != 0
+            rres = (AcceptReplyRes(
+                newly, r[1] != 0, np.where(newly, r[3], 0),
+                np.where(newly, r[4], 0),
+                np.where(newly, r[2], NO_BALLOT)), r[6] != 0, r[7] != 0)
+            return pres, rres
+        return EngineWave(finish, np_ + nr)
+
+    def propose_self_reply(self, rows_p, reqs_p, self_midx,
+                           rows_r, slots_r, bals_r, senders_r, acked_r):
+        return self.propose_self_reply_submit(
+            rows_p, reqs_p, self_midx, rows_r, slots_r, bals_r,
+            senders_r, acked_r).collect()
+
+    def prepare(self, rows, bals) -> PrepareRes:
+        rows, bals = np.asarray(rows), np.asarray(bals)
+        parts = []
+        for a, b in _chunks(len(rows)):
+            _, o = kernels.prepare(
+                self.state, self._pad1(rows[a:b], 0),
+                self._pad1(bals[a:b], NO_BALLOT), self._valid(b - a))
+            parts.append(tuple(x.cpu().numpy()[:b - a] for x in o))
+        acked, cur_bal, cursor, ws, wb, wl, wh = parts[0] \
+            if len(parts) == 1 else \
+            tuple(np.concatenate(f) for f in zip(*parts))
+        # canonicalize the raw slot%W column layout into the SPI contract:
+        # live pvalues (slot >= exec_cursor) compacted left, sorted by slot
+        live = (ws >= 0) & (ws >= cursor[:, None])
+        order = np.argsort(np.where(live, ws, np.iinfo(np.int32).max),
+                           axis=1, kind="stable")
+        ws2 = np.where(live, ws, NO_SLOT)
+        wb2 = np.where(live, wb, NO_BALLOT)
+        wl2 = np.where(live, wl, 0)
+        wh2 = np.where(live, wh, 0)
+        tk = np.take_along_axis
+        return PrepareRes(acked, cur_bal, cursor,
+                          tk(ws2, order, 1), tk(wb2, order, 1),
+                          tk(wl2, order, 1), tk(wh2, order, 1))
+
+    def install_coordinator(self, rows, cbals, next_slots, carry_slot,
+                            carry_req) -> None:
+        rows, cbals = np.asarray(rows), np.asarray(cbals)
+        next_slots = np.asarray(next_slots)
+        W = self._window
+        m = carry_slot.shape[1]
+        lo, hi = _split64(carry_req.reshape(-1))
+        lo = lo.reshape(len(rows), m)
+        hi = hi.reshape(len(rows), m)
+        for a, bnd in _chunks(len(rows)):
+            n = bnd - a
+            b = _bucket(n)
+            cs = np.full((b, W), NO_SLOT, np.int32)
+            cl = np.zeros((b, W), np.int32)
+            ch = np.zeros((b, W), np.int32)
+            cs[:n, :m] = carry_slot[a:bnd]
+            cl[:n, :m] = lo[a:bnd]
+            ch[:n, :m] = hi[a:bnd]
+            kernels.install_coordinator(
+                self.state, self._pad1(rows[a:bnd], 0),
+                self._pad1(cbals[a:bnd], NO_BALLOT),
+                self._pad1(next_slots[a:bnd], 0), self._dev(cs),
+                self._dev(cl), self._dev(ch), self._valid(n))
+
+    def set_cursor(self, rows, cursors, next_slots) -> None:
+        rows, cursors = np.asarray(rows), np.asarray(cursors)
+        next_slots = np.asarray(next_slots)
+        for a, b in _chunks(len(rows)):
+            kernels.set_cursor(
+                self.state, self._pad1(rows[a:b], 0),
+                self._pad1(cursors[a:b], 0),
+                self._pad1(next_slots[a:b], 0), self._valid(b - a))
+
+    def gc(self, rows, upto) -> None:
+        rows, upto = np.asarray(rows), np.asarray(upto)
+        for a, b in _chunks(len(rows)):
+            kernels.gc(self.state, self._pad1(rows[a:b], 0),
+                       self._pad1(upto[a:b], NO_SLOT), self._valid(b - a))
+
+    def cursor_of(self, row: int) -> int:
+        return int(self.state.exec_cursor[row])
+
+    def inspect_rows(self, rows) -> Dict[str, np.ndarray]:
+        """ONE stacked gather + ONE device->host transfer for the four
+        scalar consensus planes."""
+        r = self._dev(np.asarray(rows, np.int64))
+        st = self.state
+        stacked = torch.stack((st.bal[r], st.cbal[r], st.next_slot[r],
+                               st.exec_cursor[r])).cpu().numpy()
+        stacked = stacked.astype(np.int64)
+        return {"bal": stacked[0], "cbal": stacked[1],
+                "next_slot": stacked[2], "exec_cursor": stacked[3]}
+
+    def snapshot_row(self, row: int) -> dict:
+        return self.snapshot_rows([row])[0]
+
+    def snapshot_rows(self, rows) -> List[dict]:
+        """ONE gather + ONE device->host transfer for the whole sweep
+        (fields in the JAX engine's dtypes)."""
+        host = state_to_numpy(kernels.gather_rows(
+            self.state, self._dev(np.asarray(rows, np.int64))))
+        return [{f: host[f][i] for f in FIELDS} for i in range(len(rows))]
+
+    def restore_row(self, row: int, snap: dict) -> None:
+        # coerce dtypes: snapshots may round-trip through JSON (pause
+        # blobs), which turns u32 vote words / bool flags into int lists
+        fields = {}
+        for f, t in self.state.items():
+            a = np.asarray(snap[f])
+            if f == "prep_votes":
+                a = a.astype(np.uint32)
+            elif t.dtype == torch.bool:
+                a = a.astype(np.bool_)
+            fields[f] = a[None]
+        row_state = state_from_numpy(fields, self.device)
+        kernels.scatter_rows(self.state, self._dev(np.asarray([row])),
+                             row_state, self._dev(np.asarray([True])))
+
+    # -- slab accounting ---------------------------------------------------
+
+    def memory_info(self) -> dict:
+        """Per-plane slab bytes from the tensors themselves, bytes/group,
+        and — on a CUDA device — the allocator's bytes in use, the
+        device's total bytes and a max-groups-at-current-config
+        estimate.  Cold path (introspection only)."""
+        planes: Dict[str, int] = {}
+        total = 0
+        for f, t in self.state.items():
+            nb = t.numel() * t.element_size()
+            plane = _PLANE_OF.get(f, "control")
+            planes[plane] = planes.get(plane, 0) + nb
+            total += nb
+        per_group = total / float(self.capacity)
+        out: dict = {
+            "planes": planes,
+            "total_bytes": total,
+            "capacity": self.capacity,
+            "window": self._window,
+            "bytes_per_group": per_group,
+            "mesh": 1,
+            "platform": self.engine_platform,
+        }
+        if self._cuda:
+            _free, limit = torch.cuda.mem_get_info(self.device)
+            out["device_bytes_in_use"] = int(
+                torch.cuda.memory_allocated(self.device))
+            out["device_bytes_limit"] = int(limit)
+            # 10% reserved for batch buffers + workspace
+            out["max_groups_estimate"] = int(0.9 * limit / per_group)
+        return out
+
+    def row_ownership(self) -> dict:
+        n = int(self.state.active.sum())
+        return {"rows_active": n, "mesh": [n]}
+
+
+# plane grouping of the ColumnarState fields for the accounting view
+_PLANE_OF = {
+    "acc": "acc", "dec": "dec", "prop": "prop",
+    "bal": "ballots", "cbal": "ballots",
+    "exec_cursor": "cursors", "next_slot": "cursors",
+    "gc_slot": "cursors",
+    "prep_votes": "votes",
+    "active": "control", "members": "control", "version": "control",
+    "is_coord": "control", "coord_active": "control",
+}
