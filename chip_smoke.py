@@ -10,9 +10,13 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    kernel source (all started together), the ptxas report;
 2. kernel vs plain version on the card: the accept kernel and
    ``accept_reference`` on identical clones of a G=2^20, W=16 state with
-   inactive rows, advanced cursors and promised ballots, at B = 8, 4096
-   and 2^18 lanes over several seeds — ``bal``, ``acc`` and all four
-   output rows must be bit-identical; times per call and the byte bound;
+   inactive rows, advanced cursors and promised ballots, at B = 1, 8,
+   4096, 4099 and 2^18 lanes over several seeds, at B = 2^21 (more lanes
+   than the co-resident grid holds), on 4096 lanes crowded onto 64 rows
+   (the whole-batch ballot max decides), and on the storm's lanes —
+   ``bal``, ``acc`` and all four output rows must be bit-identical;
+   times per call (the storm's lanes cold in L2) and the byte bound
+   (lane makers and timing: ``gigapaxos_tpu_torch/accept_bench.py``);
    then storm steps and SPI waves at a small size on the card against
    the same calls on the CPU (the plain path the CPU tests hold against
    the JAX package) — every result and state plane equal;
@@ -41,10 +45,7 @@ Run: ``python3 chip_smoke.py`` from the root of the repo, on one card.
 
 from __future__ import annotations
 
-import dataclasses
 import json
-import statistics
-import subprocess
 import sys
 import time
 
@@ -54,12 +55,10 @@ import torch
 G_FULL, W_FULL, R_FULL = 1 << 20, 16, 3
 STORM_B, STORM_STEPS = 1 << 18, 4
 SPI_B, SPI_ITERS, SPI_FUSED_ITERS = 16384, 10, 2
-PARITY_BS = (8, 4096, 1 << 18)
+PARITY_BS = (1, 8, 4096, 4099, 1 << 18)
 PARITY_SEEDS = (0, 1, 2)
-TIMING_REPS = 30
-# device-memory rate of the card for the byte bound (H100 SXM data
-# sheet; the PCIe part is slower)
-HBM_BYTES_PER_S = {"pcie": 2.0e12, "default": 3.35e12}
+BIG_B = 1 << 21  # beyond the co-resident grid: grid-stride rounds
+CONTENDED = (4096, 64)  # lanes, rows
 
 
 def fail(msg: str) -> int:
@@ -71,99 +70,51 @@ def info(msg: str) -> None:
     print(msg, flush=True)
 
 
-# -- phase 1 -----------------------------------------------------------------
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    return out[0].strip()
-
-
 # -- phase 2 -----------------------------------------------------------------
 
 
-def parity_state(G, W, gen):
-    """A state with inactive rows, advanced cursors, promised ballots and
-    a filled accepted window."""
-    from gigapaxos_tpu_torch.ops.types import make_state
-    dev = torch.device("cuda")
-    st = make_state(G, W, dev)
-
-    def ri(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=gen, device=dev,
-                             dtype=torch.int32)
-
-    st.active = torch.rand(G, generator=gen, device=dev) < 0.9
-    st.exec_cursor = ri(0, 1000, (G,))
-    st.bal = ri(0, 1 << 16, (G,))
-    st.acc = ri(-1, 1 << 20, (G, W, 4))
-    return st
-
-
-def parity_lanes(st, B, gen):
-    """B lanes with distinct (row, slot) pairs (the kernel's
-    precondition): stale, in-window and out-of-window slots, ballots
-    below, at and above the promise, ~10% invalid lanes."""
-    dev = st.device
-    G, W = st.G, st.W
-    span = 64  # slot offsets: [-8, 0) stale, [0, W) window, rest beyond
-    keys = torch.randint(0, G * span, (2 * B + 64,), generator=gen,
-                         device=dev, dtype=torch.int64).unique()
-    keys = keys[torch.randperm(keys.numel(), generator=gen,
-                               device=dev)[:B]]
-    assert keys.numel() == B
-    g = (keys // span).to(torch.int32)
-    slot = st.exec_cursor[g.long()] + (keys % span).to(torch.int32) - 8
-    bal = st.bal[g.long()] + torch.randint(-2, 3, (B,), generator=gen,
-                                           device=dev, dtype=torch.int32)
-    rlo = torch.randint(-(1 << 31), (1 << 31) - 1, (B,), generator=gen,
-                        device=dev, dtype=torch.int32)
-    rhi = torch.randint(-(1 << 31), (1 << 31) - 1, (B,), generator=gen,
-                        device=dev, dtype=torch.int32)
-    valid = torch.rand(B, generator=gen, device=dev) < 0.9
-    return g, slot, bal, rlo, rhi, valid
-
-
-def device_ms(fn, reps=TIMING_REPS) -> float:
-    """Median device time of one call, from CUDA events around it, with
-    the stream kept busy ahead of the call (``torch.cuda._sleep``) so
-    the host's launch overhead is not counted as device time."""
-    fn()
+def check_accept(base, lanes, what):
+    """The kernel and ``accept_reference`` on identical clones of
+    ``base``: ``out``, ``bal`` and ``acc`` must be bit-identical.
+    Returns the max abs error (0) and the kernel's output and state."""
+    from gigapaxos_tpu_torch.accept_bench import clone_state
+    from gigapaxos_tpu_torch.ops.accept_cuda import accept, accept_reference
+    st_k, st_r = clone_state(base), clone_state(base)
+    out_k = accept(st_k, *lanes)
+    out_r = accept_reference(st_r, *lanes)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return statistics.median(times)
+    max_err = 0
+    for name, a, b in (("out", out_k, out_r), ("bal", st_k.bal, st_r.bal),
+                       ("acc", st_k.acc, st_r.acc)):
+        err = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+        max_err = max(max_err, err)
+        if not torch.equal(a, b):
+            raise AssertionError(f"accept kernel != accept_reference: "
+                                 f"{name} ({what}, max abs err {err})")
+    return max_err, out_k, st_k
 
 
-def accept_bytes(st0, lanes, out, bal_after) -> int:
-    """Bytes the accept function must move for these lanes: each lane
-    input read once, each output written once, each touched row's
-    active/bal/exec_cursor read once, each raised ballot and each stored
-    pvalue written once."""
-    g, slot, bal, rlo, rhi, valid = lanes
-    B = g.numel()
-    gi = torch.where(valid, g, 0).long()
-    rows = gi.unique()
-    raised = int((bal_after[rows] != st0.bal[rows]).sum())
-    stored = int(((out[0] != 0) & (out[1] == 0)).sum())
-    return B * (5 * 4 + 1) + B * 4 * 4 + rows.numel() * (1 + 4 + 4) + \
-        raised * 4 + stored * 16
+def time_accept(base, lanes, out, st, hbm, before=None):
+    """Kernel and plain times of one call, and the byte bound of the
+    call that gave ``out`` and ``st`` from ``base``."""
+    from gigapaxos_tpu_torch.accept_bench import (accept_bytes, clone_state,
+                                                  device_ms)
+    from gigapaxos_tpu_torch.ops.accept_cuda import accept, accept_reference
+    nbytes = accept_bytes(base, lanes, out, st.bal)
+    st_t = clone_state(base)
+    ms = device_ms(lambda: accept(st_t, *lanes), before=before)
+    plain_ms = device_ms(lambda: accept_reference(st_t, *lanes),
+                         before=before)
+    n_store = int(((out[0] != 0) & (out[1] == 0)).sum())
+    return {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": nbytes / hbm * 1e3, "stores": n_store}
 
 
 def phase_parity(name_line):
-    from gigapaxos_tpu_torch.ops.accept_cuda import accept, accept_reference
-    hbm = HBM_BYTES_PER_S["pcie" if "PCIe" in name_line else "default"]
+    from gigapaxos_tpu_torch.accept_bench import (contended_lanes, hbm_rate,
+                                                  l2_flusher, parity_lanes,
+                                                  parity_state, storm_lanes)
+    hbm = hbm_rate(name_line)
     rows = {}
     max_err = 0
     for seed in PARITY_SEEDS:
@@ -172,39 +123,35 @@ def phase_parity(name_line):
         base = parity_state(G_FULL, W_FULL, gen)
         for B in PARITY_BS:
             lanes = parity_lanes(base, B, gen)
-            st_k = dataclasses.replace(base, bal=base.bal.clone(),
-                                       acc=base.acc.clone())
-            st_r = dataclasses.replace(base, bal=base.bal.clone(),
-                                       acc=base.acc.clone())
-            out_k = accept(st_k, *lanes)
-            out_r = accept_reference(st_r, *lanes)
-            torch.cuda.synchronize()
-            for what, a, b in (("out", out_k, out_r),
-                               ("bal", st_k.bal, st_r.bal),
-                               ("acc", st_k.acc, st_r.acc)):
-                err = int((a.long() - b.long()).abs().max()) \
-                    if a.numel() else 0
-                max_err = max(max_err, err)
-                if not torch.equal(a, b):
-                    raise AssertionError(
-                        f"accept kernel != accept_reference: {what} "
-                        f"(seed {seed}, B={B}, max abs err {err})")
-            n_store = int(((out_k[0] != 0) & (out_k[1] == 0)).sum())
+            err, out, st = check_accept(base, lanes, f"seed {seed}, B={B}")
+            max_err = max(max_err, err)
             if seed == PARITY_SEEDS[0]:
-                nbytes = accept_bytes(base, lanes, out_k, st_k.bal)
-                st_t = dataclasses.replace(base, bal=base.bal.clone(),
-                                           acc=base.acc.clone())
-                ms = device_ms(lambda: accept(st_t, *lanes))
-                plain_ms = device_ms(lambda: accept_reference(st_t, *lanes))
-                rows[B] = {"ms": ms, "plain_ms": plain_ms,
-                           "bytes": nbytes,
-                           "bound_ms": nbytes / hbm * 1e3}
-                info(f"accept B={B}: kernel {ms:.4f} ms, plain "
-                     f"{plain_ms:.4f} ms, bound {rows[B]['bound_ms']:.4f} "
-                     f"ms ({nbytes} B at {hbm / 1e12:.2f} TB/s), "
-                     f"{n_store} stores, bit-exact")
-            del st_k, st_r
+                rows[str(B)] = time_accept(base, lanes, out, st, hbm)
+        if seed == PARITY_SEEDS[0]:
+            # past the co-resident grid: the grid-stride rounds
+            lanes = parity_lanes(base, BIG_B, gen)
+            max_err = max(max_err, check_accept(
+                base, lanes, f"seed {seed}, B={BIG_B}")[0])
+            B, n_rows = CONTENDED
+            lanes = contended_lanes(base, B, n_rows, gen)
+            max_err = max(max_err, check_accept(
+                base, lanes, f"contended, {B} lanes on {n_rows} rows")[0])
         del base
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(PARITY_SEEDS[0])
+    base = parity_state(G_FULL, W_FULL, gen, active_share=1.0)
+    lanes = storm_lanes(base, STORM_B, gen)
+    err, out, st = check_accept(base, lanes, "storm lanes")
+    max_err = max(max_err, err)
+    rows[f"storm_{STORM_B}"] = dict(
+        time_accept(base, lanes, out, st, hbm, before=l2_flusher()),
+        cold_l2=True)
+    for k, r in rows.items():
+        info(f"accept {k}: kernel {r['ms']:.4f} ms, plain "
+             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+             f"({r['bytes']} B at {hbm / 1e12:.2f} TB/s), {r['stores']} "
+             f"stores, bit-exact [{name_line}]")
+    del base, lanes, out, st
     torch.cuda.empty_cache()
     return rows, max_err
 
@@ -348,7 +295,7 @@ def phase_storm():
             raise AssertionError(f"storm: replica {r} dec plane differs")
     del states
     torch.cuda.empty_cache()
-    want = STORM_STEPS * R * 2
+    want = STORM_STEPS * R
     if launches != want:
         raise AssertionError(f"storm: accept launches {launches} != {want}")
     return {"decided": decided_total, "wall_s": wall,
@@ -400,7 +347,7 @@ def phase_spi():
         for b in bks:
             acks.append(b.accept(g, pr.slot, pr.cbal, reqs).acked &
                         pr.granted)
-            want_launches += 2 * len(_chunks(B))
+            want_launches += len(_chunks(B))
         newly = replies(g, pr, acks)
         for b in bks:
             b.commit(g, pr.slot, reqs)
@@ -423,7 +370,7 @@ def phase_spi():
             if not cres.applied.all():
                 raise AssertionError("spi: fused commit not applied")
             acks.append(ares.acked & pr.granted)
-            want_launches += 2 * len(_chunks(max(B, len(pending[0]))))
+            want_launches += len(_chunks(max(B, len(pending[0]))))
         newly = replies(g, pr, acks)
         pending = (g[newly], pr.slot[newly], reqs[newly])
         decided_total += int(newly.sum())
@@ -457,6 +404,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("no CUDA device (torch.cuda.is_available() is false)")
     try:
+        from gigapaxos_tpu_torch.accept_bench import card_line
         from gigapaxos_tpu_torch.ops import _build
     except ImportError as e:
         return fail(f"the port is not beside this script: {e}")
@@ -475,8 +423,9 @@ def main() -> int:
 
         timing, max_err = phase_parity(line)
         info(f"parity: accept kernel bit-identical to accept_reference at "
-             f"B={list(PARITY_BS)}, seeds {list(PARITY_SEEDS)}, "
-             f"G={G_FULL}, W={W_FULL}")
+             f"B={list(PARITY_BS)}, seeds {list(PARITY_SEEDS)}; at "
+             f"B={BIG_B}; {CONTENDED[0]} lanes on {CONTENDED[1]} rows; "
+             f"the storm's lanes at B={STORM_B}; G={G_FULL}, W={W_FULL}")
         phase_cpu_parity()
         info("parity: storm steps and SPI waves on the card bit-identical "
              "to the same calls on the CPU (small size)")
@@ -495,7 +444,7 @@ def main() -> int:
         traceback.print_exc()
         return fail(f"{type(e).__name__}: {e}")
 
-    big = timing[max(PARITY_BS)]
+    big = timing[f"storm_{STORM_B}"]  # the main path's shape, cold L2
     kernels = [{
         "name": "accept",
         "route": "cuda",
@@ -506,13 +455,14 @@ def main() -> int:
                              "spi": spi["launches"]},
         "parity": "bit-exact",
         "max_abs_err": max_err,
-        "lanes": max(PARITY_BS),
+        "lanes": STORM_B,
+        "lanes_kind": "storm (every lane stores), cold L2",
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "by_lanes": {str(b): timing[b] for b in PARITY_BS},
+        "by_lanes": timing,
     }]
     info(line)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,7 +12,9 @@ For each it reports the host wall per step and decisions per second
 (profiler off), then, from a profiled window of as many steps, the
 device busy share (device-side event time over that window's wall), the
 top device kernels by time with their share, and the accept kernel's
-share.  One warm-up step precedes both windows.
+share (found by its name, ``accept_cuda.KERNEL_NAME``; a window that
+launched it but shows no time for it is an error, not a 0% share).
+One warm-up step precedes both windows.
 
 Run: ``python -m gigapaxos_tpu_torch.breakdown [--out FILE.json]`` on a
 machine with a CUDA card (it exits non-zero without one).
@@ -49,11 +51,14 @@ def _profile(step, steps: int) -> dict:
     also credits a launching operator with its kernels' time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from gigapaxos_tpu_torch.ops.accept_cuda import KERNEL_NAME, accept
     step()  # warm-up, outside both windows
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     decisions = sum(step() for _ in range(steps))
     wall = time.perf_counter() - t0
+    launches = accept.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -61,13 +66,17 @@ def _profile(step, steps: int) -> dict:
             step()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
+    launches = accept.launches - launches
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     rows = [r for r in rows if r[1] > 0]
     busy_us = sum(us for _, us, _ in rows)
     rows.sort(key=lambda r: -r[1])
-    accept_us = sum(us for k, us, _ in rows if "accept_" in k and
-                    "kernel" in k)
+    accept_us = sum(us for k, us, _ in rows if KERNEL_NAME in k)
+    if launches and not accept_us:
+        raise RuntimeError(f"breakdown: the accept kernel launched "
+                           f"{launches} times but the profiler shows no "
+                           f"device time for {KERNEL_NAME}")
     return {
         "steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,
@@ -78,6 +87,7 @@ def _profile(step, steps: int) -> dict:
         "accept_kernel_share_of_device": accept_us / busy_us if busy_us
         else 0.0,
         "accept_kernel_us_per_step": accept_us / steps,
+        "accept_launches_per_step": launches / steps,
         "top_kernels": [
             {"name": k[:96], "device_us_per_step": us / steps,
              "calls_per_step": n / steps, "share_of_device": us / busy_us}
@@ -160,7 +170,8 @@ def main(argv=None) -> int:
               f"{r['device_busy_share']:.1%} of "
               f"{r['profiled_wall_ms_per_step']:.3f} ms profiled, "
               f"{r['decisions_per_s']:.0f} decisions/s, accept kernel "
-              f"{r['accept_kernel_us_per_step']:.1f} us/step "
+              f"{r['accept_kernel_us_per_step']:.1f} us/step in "
+              f"{r['accept_launches_per_step']:.0f} launches "
               f"({r['accept_kernel_share_of_device']:.2%} of device time) "
               f"[{card}]")
         for k in r["top_kernels"]:

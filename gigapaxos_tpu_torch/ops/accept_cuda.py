@@ -12,30 +12,43 @@ design.  In short:
   gathers (``active``, ``bal``, ``exec_cursor``), at most 4 B of ballot
   write, one 16 B ``acc`` store and 16 B of outputs.  At B = 2^18 that
   is about 17 MB, some 5 us at 3.35 TB/s; at the backend's B <= 4096 the
-  bytes take well under 1 us and the bound is launch latency.
-- **Design:** two launches of one thread a lane.  Launch 1 raises
-  ``bal[g]`` with ``atomicMax`` for every live lane; launch 2 reads the
-  post-batch ballot (the max over the WHOLE batch, as the TPU kernel
-  and the XLA body read it), decides promised / stale / in-window, stores
-  the pvalue as one 16-byte ``int4`` and writes the packed ``out[4, B]``.
+  bytes take well under 1 us.  Each random row gather and ``acc`` store
+  touches its own 32-byte sector, so at large B the kernel is bound by
+  random sector traffic, and at small B by the launch and the chain of
+  dependent memory round trips each lane waits on.
+- **Design:** ONE cooperative launch a call.  Phase A raises ``bal[g]``
+  with ``atomicMax`` for every live lane; a grid-wide barrier; phase B
+  reads the post-batch ballot (the max over the WHOLE batch, as the TPU
+  kernel and the XLA body read it), decides promised / stale /
+  in-window, stores the pvalue as one 16-byte ``int4`` and writes the
+  packed ``out[4, B]``.  A thread owns four consecutive lanes (16-byte
+  vector loads), gathers all their rows before using any, and keeps
+  them in registers across the barrier, so phase B gathers only
+  ``bal``.  The grid is at most the co-resident block count
+  (:func:`grid_plan`); lanes beyond it take a grid-stride loop.
 
 :data:`accept` is the wrapper the kernels call.  For a state on a CUDA
 device it launches the kernel — or raises; there is no fallback — and
-counts each launch in ``accept.launches``.  For a state on the CPU it
-runs :func:`accept_reference`, the plain version, which the CPU tests
-hold against the JAX package and ``chip_smoke.py`` holds the kernel
-against on the card.
+counts each launch in ``accept.launches`` (one a call).  For a state on
+the CPU it runs :func:`accept_reference`, the plain version, which the
+CPU tests hold against the JAX package and ``chip_smoke.py`` holds the
+kernel against on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from gigapaxos_tpu_torch.ops.types import ColumnarState
 
 INT32_MIN = -(1 << 31)
+# launch geometry of csrc/accept.cu (kThreads, kLanes); the library
+# reports its own at load and the wrapper checks they agree
+THREADS, LANES = 128, 4
+KERNEL_NAME = "accept_coop_kernel"
 
 
 def accept_reference(state: ColumnarState, g, slot, bal, rlo, rhi, valid
@@ -66,6 +79,31 @@ def accept_reference(state: ColumnarState, g, slot, bal, rlo, rhi, valid
         cur_bal])
 
 
+def grid_plan(B: int, limit: int) -> int:
+    """Blocks of the cooperative launch for ``B`` lanes: one block per
+    ``THREADS * LANES`` lanes, at most ``limit`` (the co-resident block
+    count, which the grid-wide barrier needs); 0 for no lanes."""
+    if B <= 0:
+        return 0
+    if limit < 1:
+        raise ValueError(f"accept kernel: co-resident limit {limit} < 1")
+    return min(-(-B // (THREADS * LANES)), limit)
+
+
+def quad_bases(B: int, blocks: int) -> np.ndarray:
+    """The first lane of every quad the kernel's threads walk, as the
+    kernel indexes them: ``[rounds, blocks, THREADS]``, round 0 before
+    the barrier's grid-stride rounds; each quad covers lanes
+    ``base .. base + LANES - 1`` below ``B`` (the last may be partial).
+    Entries at or beyond ``B`` own nothing."""
+    per_round = blocks * THREADS * LANES
+    rounds = -(-B // per_round) if per_round else 0
+    return (np.arange(rounds, dtype=np.int64)[:, None, None] * per_round +
+            np.arange(blocks, dtype=np.int64)[None, :, None] *
+            (THREADS * LANES) +
+            np.arange(THREADS, dtype=np.int64)[None, None, :] * LANES)
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -76,20 +114,48 @@ class AcceptKernel:
     name = "accept"
 
     def __init__(self):
-        self.launches = 0  # CUDA kernel launches (two per call)
+        self.launches = 0  # CUDA kernel launches (one per call)
         self._lib = None
+        self._limit = {}  # device index -> co-resident block count
 
     def load(self) -> ctypes.CDLL:
         """Build (first use) and bind the kernel's library."""
         if self._lib is None:
             from gigapaxos_tpu_torch.ops import _build
             lib = _build.load(self.name)
-            lib.gp_accept_ballot.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P]
-            lib.gp_accept_ballot.restype = _I
-            lib.gp_accept_store.argtypes = [_P] * 11 + [_I, _I, _I, _P]
-            lib.gp_accept_store.restype = _I
+            lib.gp_accept.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+            lib.gp_accept.restype = _I
+            lib.gp_accept_limits.argtypes = [ctypes.POINTER(_I)] * 4
+            lib.gp_accept_limits.restype = _I
             self._lib = lib
         return self._lib
+
+    def coresident_blocks(self, dev: torch.device) -> int:
+        """The co-resident block count of the kernel on ``dev`` (queried
+        once a device); raises if the device takes no cooperative
+        launch or the library's geometry differs from this module's."""
+        idx = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        if idx not in self._limit:
+            lib = self.load()
+            t, k, n, coop = _I(), _I(), _I(), _I()
+            with torch.cuda.device(idx):
+                rc = lib.gp_accept_limits(ctypes.byref(t), ctypes.byref(k),
+                                          ctypes.byref(n), ctypes.byref(coop))
+            if rc:
+                raise RuntimeError(f"accept kernel: limit query failed: "
+                                   f"cuda error {rc}")
+            if not coop.value:
+                raise RuntimeError(f"accept kernel: device {idx} does not "
+                                   "support cooperative launches")
+            if (t.value, k.value) != (THREADS, LANES):
+                raise RuntimeError(
+                    f"accept kernel: library geometry {t.value}x{k.value} "
+                    f"!= {THREADS}x{LANES}")
+            if n.value < 1:
+                raise RuntimeError("accept kernel: no block fits an SM")
+            self._limit[idx] = n.value
+        return self._limit[idx]
 
     def __call__(self, state: ColumnarState, g, slot, bal, rlo, rhi,
                  valid) -> torch.Tensor:
@@ -123,25 +189,24 @@ class AcceptKernel:
         out = torch.empty((4, B), dtype=torch.int32, device=dev)
         if B == 0:
             return out  # a zero-block grid is an invalid launch
+        if out.data_ptr() % 16:
+            raise ValueError("accept kernel: out not 16-byte aligned")
+        # the vector loads need 16-byte lane rows (4-byte valid bytes);
+        # other lanes take the scalar loads
+        vec_in = all(t.data_ptr() % 16 == 0 for t in lanes) and \
+            valid.data_ptr() % 4 == 0
+        blocks = grid_plan(B, self.coresident_blocks(dev))
         lib = self.load()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.gp_accept_ballot(
-                g.data_ptr(), bal.data_ptr(), valid.data_ptr(),
-                state.active.data_ptr(), state.bal.data_ptr(), B, G, stream)
-            if rc:
-                raise RuntimeError(f"accept ballot launch failed: cuda "
-                                   f"error {rc}")
-            self.launches += 1
-            rc = lib.gp_accept_store(
+            rc = lib.gp_accept(
                 g.data_ptr(), slot.data_ptr(), bal.data_ptr(),
                 rlo.data_ptr(), rhi.data_ptr(), valid.data_ptr(),
                 state.active.data_ptr(), state.bal.data_ptr(),
                 state.exec_cursor.data_ptr(), state.acc.data_ptr(),
-                out.data_ptr(), B, G, W, stream)
+                out.data_ptr(), B, G, W, blocks, int(vec_in), stream)
             if rc:
-                raise RuntimeError(f"accept store launch failed: cuda "
-                                   f"error {rc}")
+                raise RuntimeError(f"accept launch failed: cuda error {rc}")
             self.launches += 1
         return out
 

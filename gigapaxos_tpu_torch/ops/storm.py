@@ -7,7 +7,8 @@ living on one device:
     propose (coordinator) → accept ×R → accept_reply ×R (quorum count)
     → commit ×R (window frontier advance)
 
-Each accept goes through the hand-written accept kernel (two launches).
+Each accept goes through the hand-written accept kernel (one cooperative
+launch).
 The replica states are updated in place (the JAX step donates them).
 """
 

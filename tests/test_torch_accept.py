@@ -173,6 +173,25 @@ def test_accept_zero_lanes():
         np.testing.assert_array_equal(before[f], after[f])
 
 
+@pytest.mark.parametrize("limit", [1, 7, 2112])
+@pytest.mark.parametrize("B", [0, 1, 8, 4096, 4099, 1 << 18, 1 << 21])
+def test_accept_grid_plan_covers_every_lane_once(B, limit):
+    """The cooperative launch's grid never exceeds the co-resident
+    limit, launches nothing for no lanes, and its threads' quads (round
+    0 and the grid-stride rounds, as the kernel walks them) cover every
+    lane exactly once."""
+    blocks = accept_cuda.grid_plan(B, limit)
+    assert 0 <= blocks <= limit
+    assert (blocks == 0) == (B == 0)
+    bases = accept_cuda.quad_bases(B, blocks).reshape(-1)
+    lanes = (bases[:, None] + np.arange(accept_cuda.LANES)).reshape(-1)
+    lanes = lanes[lanes < B]
+    assert lanes.size == B
+    np.testing.assert_array_equal(np.sort(lanes), np.arange(B))
+    if B and blocks < limit:  # the grid is only as wide as the lanes need
+        assert blocks * accept_cuda.THREADS * accept_cuda.LANES >= B
+
+
 def test_build_cache_key_follows_sources(tmp_path, monkeypatch):
     """The kernel library is named by a hash of its source, the headers
     beside it and the flags: an edit rebuilds, an unchanged tree loads
