@@ -15,9 +15,8 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    than the co-resident grid holds), on 4096 lanes crowded onto 64 rows
    (the whole-batch ballot max decides), and on the storm's lanes —
    ``bal``, ``acc`` and all four output rows must be bit-identical;
-   times per call (the storm's lanes cold in L2) and the byte bound
-   (lane makers and timing: ``gigapaxos_tpu_torch/accept_bench.py``);
-   then storm steps and SPI waves at a small size on the card against
+   times per call (the storm's lanes also with L2 cold) and the byte
+   bound; then storm steps and SPI waves at a small size on the card against
    the same calls on the CPU (the plain path the CPU tests hold against
    the JAX package) — every result and state plane equal;
 3. the decide storm: ``make_fleet(2**20, 16, R=3)`` and several
@@ -45,7 +44,10 @@ Run: ``python3 chip_smoke.py`` from the root of the repo, on one card.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import statistics
+import subprocess
 import sys
 import time
 
@@ -59,6 +61,11 @@ PARITY_BS = (1, 8, 4096, 4099, 1 << 18)
 PARITY_SEEDS = (0, 1, 2)
 BIG_B = 1 << 21  # beyond the co-resident grid: grid-stride rounds
 CONTENDED = (4096, 64)  # lanes, rows
+TIMING_REPS = 30
+FLUSH_BYTES = 128 << 20  # > 2x the H100's 50 MB L2
+# device-memory rate of the card for the byte bound (H100 SXM data
+# sheet; the PCIe part is slower)
+HBM_BYTES_PER_S = {"pcie": 2.0e12, "default": 3.35e12}
 
 
 def fail(msg: str) -> int:
@@ -70,14 +77,152 @@ def info(msg: str) -> None:
     print(msg, flush=True)
 
 
+# -- phase 1 -----------------------------------------------------------------
+
+
+def card_line() -> str:
+    """``name, power.limit`` of the first card, as ``nvidia-smi`` says."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0].strip()
+
+
 # -- phase 2 -----------------------------------------------------------------
+
+
+def parity_state(G, W, gen, active_share=0.9):
+    """A state with inactive rows, advanced cursors, promised ballots and
+    a filled accepted window."""
+    from gigapaxos_tpu_torch.ops.types import make_state
+    dev = torch.device("cuda")
+    st = make_state(G, W, dev)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    st.active = torch.rand(G, generator=gen, device=dev) < active_share
+    st.exec_cursor = ri(0, 1000, (G,))
+    st.bal = ri(0, 1 << 16, (G,))
+    st.acc = ri(-1, 1 << 20, (G, W, 4))
+    return st
+
+
+def clone_state(st):
+    """The state with its two planes the accept writes copied."""
+    return dataclasses.replace(st, bal=st.bal.clone(), acc=st.acc.clone())
+
+
+def _req_ids(B, gen, dev):
+    return (torch.randint(-(1 << 31), (1 << 31) - 1, (B,), generator=gen,
+                          device=dev, dtype=torch.int32)
+            for _ in range(2))
+
+
+def parity_lanes(st, B, gen):
+    """B lanes with distinct (row, slot) pairs (the kernel's
+    precondition): stale, in-window and out-of-window slots, ballots
+    below, at and above the promise, ~10% invalid lanes."""
+    dev = st.device
+    G = st.G
+    span = 64  # slot offsets: [-8, 0) stale, [0, W) window, rest beyond
+    keys = torch.randint(0, G * span, (2 * B + 64,), generator=gen,
+                         device=dev, dtype=torch.int64).unique()
+    keys = keys[torch.randperm(keys.numel(), generator=gen,
+                               device=dev)[:B]]
+    assert keys.numel() == B
+    g = (keys // span).to(torch.int32)
+    slot = st.exec_cursor[g.long()] + (keys % span).to(torch.int32) - 8
+    bal = st.bal[g.long()] + torch.randint(-2, 3, (B,), generator=gen,
+                                           device=dev, dtype=torch.int32)
+    rlo, rhi = _req_ids(B, gen, dev)
+    valid = torch.rand(B, generator=gen, device=dev) < 0.9
+    return g, slot, bal, rlo, rhi, valid
+
+
+def contended_lanes(st, B, rows, gen):
+    """B lanes on only ``rows`` rows (B / rows lanes a row, distinct
+    slots), ballots spread around the promise: the whole-batch ballot
+    max, not each lane's own ballot, decides most lanes."""
+    dev = st.device
+    per = B // rows
+    assert per * rows == B
+    r = torch.randperm(st.G, generator=gen, device=dev)[:rows]
+    g = r.repeat_interleave(per).to(torch.int32)
+    offs = torch.argsort(torch.rand(rows, per, generator=gen, device=dev),
+                         dim=1).reshape(-1).to(torch.int32)
+    slot = st.exec_cursor[g.long()] + offs - 8
+    bal = st.bal[g.long()] + torch.randint(-32, 33, (B,), generator=gen,
+                                           device=dev, dtype=torch.int32)
+    rlo, rhi = _req_ids(B, gen, dev)
+    valid = torch.rand(B, generator=gen, device=dev) < 0.9
+    perm = torch.randperm(B, generator=gen, device=dev)
+    return tuple(t[perm] for t in (g, slot, bal, rlo, rhi, valid))
+
+
+def storm_lanes(st, B, gen):
+    """The storm's steady state on an all-active state: B distinct random
+    rows, every lane valid, in the window and at the promise, so every
+    lane stores."""
+    dev = st.device
+    g = torch.randperm(st.G, generator=gen, device=dev)[:B].to(torch.int32)
+    slot = st.exec_cursor[g.long()] + torch.randint(
+        0, st.W, (B,), generator=gen, device=dev, dtype=torch.int32)
+    bal = st.bal[g.long()]
+    rlo, rhi = _req_ids(B, gen, dev)
+    return g, slot, bal, rlo, rhi, torch.ones(B, dtype=torch.bool,
+                                              device=dev)
+
+
+def l2_flusher():
+    """A callable that writes ``FLUSH_BYTES`` on the card, evicting L2."""
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    return buf.zero_
+
+
+def device_ms(fn, reps=TIMING_REPS, before=None) -> float:
+    """Median device time of one call, from CUDA events around it, with
+    the stream kept busy ahead of the call (``torch.cuda._sleep``) so
+    the host's launch overhead is not counted as device time.
+    ``before`` (say, an L2 flush) runs ahead of each timed call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000)
+        if before is not None:
+            before()
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def accept_bytes(st0, lanes, out, bal_after) -> int:
+    """Bytes the accept function must move for these lanes: each lane
+    input read once, each output written once, each touched row's
+    active/bal/exec_cursor read once, each raised ballot and each stored
+    pvalue written once."""
+    g, slot, bal, rlo, rhi, valid = lanes
+    B = g.numel()
+    gi = torch.where(valid, g, 0).long()
+    rows = gi.unique()
+    raised = int((bal_after[rows] != st0.bal[rows]).sum())
+    stored = int(((out[0] != 0) & (out[1] == 0)).sum())
+    return B * (5 * 4 + 1) + B * 4 * 4 + rows.numel() * (1 + 4 + 4) + \
+        raised * 4 + stored * 16
 
 
 def check_accept(base, lanes, what):
     """The kernel and ``accept_reference`` on identical clones of
     ``base``: ``out``, ``bal`` and ``acc`` must be bit-identical.
     Returns the max abs error (0) and the kernel's output and state."""
-    from gigapaxos_tpu_torch.accept_bench import clone_state
     from gigapaxos_tpu_torch.ops.accept_cuda import accept, accept_reference
     st_k, st_r = clone_state(base), clone_state(base)
     out_k = accept(st_k, *lanes)
@@ -97,8 +242,6 @@ def check_accept(base, lanes, what):
 def time_accept(base, lanes, out, st, hbm, before=None):
     """Kernel and plain times of one call, and the byte bound of the
     call that gave ``out`` and ``st`` from ``base``."""
-    from gigapaxos_tpu_torch.accept_bench import (accept_bytes, clone_state,
-                                                  device_ms)
     from gigapaxos_tpu_torch.ops.accept_cuda import accept, accept_reference
     nbytes = accept_bytes(base, lanes, out, st.bal)
     st_t = clone_state(base)
@@ -111,10 +254,7 @@ def time_accept(base, lanes, out, st, hbm, before=None):
 
 
 def phase_parity(name_line):
-    from gigapaxos_tpu_torch.accept_bench import (contended_lanes, hbm_rate,
-                                                  l2_flusher, parity_lanes,
-                                                  parity_state, storm_lanes)
-    hbm = hbm_rate(name_line)
+    hbm = HBM_BYTES_PER_S["pcie" if "PCIe" in name_line else "default"]
     rows = {}
     max_err = 0
     for seed in PARITY_SEEDS:
@@ -404,7 +544,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("no CUDA device (torch.cuda.is_available() is false)")
     try:
-        from gigapaxos_tpu_torch.accept_bench import card_line
         from gigapaxos_tpu_torch.ops import _build
     except ImportError as e:
         return fail(f"the port is not beside this script: {e}")
@@ -444,7 +583,7 @@ def main() -> int:
         traceback.print_exc()
         return fail(f"{type(e).__name__}: {e}")
 
-    big = timing[f"storm_{STORM_B}"]  # the main path's shape, cold L2
+    big = timing[str(max(PARITY_BS))]
     kernels = [{
         "name": "accept",
         "route": "cuda",
@@ -455,8 +594,7 @@ def main() -> int:
                              "spi": spi["launches"]},
         "parity": "bit-exact",
         "max_abs_err": max_err,
-        "lanes": STORM_B,
-        "lanes_kind": "storm (every lane stores), cold L2",
+        "lanes": max(PARITY_BS),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],

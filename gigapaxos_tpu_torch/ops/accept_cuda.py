@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from gigapaxos_tpu_torch.ops.types import ColumnarState
@@ -88,20 +87,6 @@ def grid_plan(B: int, limit: int) -> int:
     if limit < 1:
         raise ValueError(f"accept kernel: co-resident limit {limit} < 1")
     return min(-(-B // (THREADS * LANES)), limit)
-
-
-def quad_bases(B: int, blocks: int) -> np.ndarray:
-    """The first lane of every quad the kernel's threads walk, as the
-    kernel indexes them: ``[rounds, blocks, THREADS]``, round 0 before
-    the barrier's grid-stride rounds; each quad covers lanes
-    ``base .. base + LANES - 1`` below ``B`` (the last may be partial).
-    Entries at or beyond ``B`` own nothing."""
-    per_round = blocks * THREADS * LANES
-    rounds = -(-B // per_round) if per_round else 0
-    return (np.arange(rounds, dtype=np.int64)[:, None, None] * per_round +
-            np.arange(blocks, dtype=np.int64)[None, :, None] *
-            (THREADS * LANES) +
-            np.arange(THREADS, dtype=np.int64)[None, None, :] * LANES)
 
 
 _P = ctypes.c_void_p

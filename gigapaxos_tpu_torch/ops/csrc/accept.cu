@@ -35,8 +35,7 @@
 //   lane that cannot raise the promise, the steady state, issues no
 //   atomic) and phase B (read the post-batch bal[r], decide, store).
 //   Every lane must see the max over the whole batch, so a barrier is
-//   needed; one launch pays one launch latency instead of two.  A grid
-//   of one block (B <= 512) takes the block barrier instead.
+//   needed; one launch pays one launch latency instead of two.
 // - The grid never exceeds the co-resident block count (the barrier
 //   needs every block resident; gp_accept_limits reports it), and lanes
 //   beyond threads x kLanes x grid take a grid-stride loop.
@@ -221,13 +220,7 @@ __global__ void __launch_bounds__(kThreads) accept_coop_kernel(Args a) {
     load_quad(a, base, t, pb);
     raise_quad(a, t, pb);
   }
-  // every atomicMax of the batch is visible past the barrier; one block
-  // (B <= kBlockLanes) needs only the block's own, which skips the grid
-  // barrier's global-memory round trips
-  if (gridDim.x == 1)
-    __syncthreads();
-  else
-    cg::this_grid().sync();
+  cg::this_grid().sync();  // every atomicMax of the batch is visible past it
   if (have) decide_quad(a, first, q);
   for (int64_t base = first + stride; base < a.B; base += stride) {
     Quad t;

@@ -177,19 +177,19 @@ def test_accept_zero_lanes():
 @pytest.mark.parametrize("B", [0, 1, 8, 4096, 4099, 1 << 18, 1 << 21])
 def test_accept_grid_plan_covers_every_lane_once(B, limit):
     """The cooperative launch's grid never exceeds the co-resident
-    limit, launches nothing for no lanes, and its threads' quads (round
-    0 and the grid-stride rounds, as the kernel walks them) cover every
-    lane exactly once."""
+    limit and launches nothing for no lanes.  Under the limit one round
+    of the grid covers every lane and no block is idle; at the limit the
+    kernel's grid-stride loop takes the rest (the card's parity cases
+    at B = 4099 and 2^21 in ``chip_smoke.py`` check the kernel's own
+    lane walk)."""
     blocks = accept_cuda.grid_plan(B, limit)
+    per_block = accept_cuda.THREADS * accept_cuda.LANES
     assert 0 <= blocks <= limit
     assert (blocks == 0) == (B == 0)
-    bases = accept_cuda.quad_bases(B, blocks).reshape(-1)
-    lanes = (bases[:, None] + np.arange(accept_cuda.LANES)).reshape(-1)
-    lanes = lanes[lanes < B]
-    assert lanes.size == B
-    np.testing.assert_array_equal(np.sort(lanes), np.arange(B))
-    if B and blocks < limit:  # the grid is only as wide as the lanes need
-        assert blocks * accept_cuda.THREADS * accept_cuda.LANES >= B
+    if B and blocks < limit:
+        assert blocks * per_block >= B > (blocks - 1) * per_block
+    elif B:
+        assert blocks == limit and limit * per_block < B + per_block
 
 
 def test_build_cache_key_follows_sources(tmp_path, monkeypatch):
