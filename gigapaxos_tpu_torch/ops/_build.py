@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from gigapaxos_tpu_torch.utils.engineledger import EngineLedger
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -90,6 +92,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             continue
         out.with_suffix(".log").write_text(text)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+        EngineLedger.note_build(f"cuda:{name}", secs[name])
     if errors:
         raise RuntimeError("\n".join(errors))
     return secs
@@ -100,9 +103,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            build_all([name])
+            built = build_all([name])[name] > 0
             lib = ctypes.CDLL(str(lib_path(name)))
             _loaded[name] = lib
+            EngineLedger.note_load(f"cuda:{name}", built)
         return lib
 
 

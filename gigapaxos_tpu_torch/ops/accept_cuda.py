@@ -29,15 +29,17 @@ design.  In short:
 
 :data:`accept` is the wrapper the kernels call.  For a state on a CUDA
 device it launches the kernel — or raises; there is no fallback — and
-counts each launch in ``accept.launches`` (one a call).  For a state on
-the CPU it runs :func:`accept_reference`, the plain version, which the
-CPU tests hold against the JAX package and ``chip_smoke.py`` holds the
-kernel against on the card.
+counts each launch in ``accept.launches`` (one a call, exact when
+several threads launch).  For a state on the CPU it runs
+:func:`accept_reference`, the plain version, which the CPU tests hold
+against the JAX package and ``chip_smoke.py`` holds the kernel against
+on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -99,7 +101,10 @@ class AcceptKernel:
     name = "accept"
 
     def __init__(self):
-        self.launches = 0  # CUDA kernel launches (one per call)
+        # CUDA kernel launches (one per call); the node runtime launches
+        # from several threads, so the count is bumped under a lock
+        self.launches = 0
+        self._count_lock = threading.Lock()
         self._lib = None
         self._limit = {}  # device index -> co-resident block count
 
@@ -192,7 +197,8 @@ class AcceptKernel:
                 out.data_ptr(), B, G, W, blocks, int(vec_in), stream)
             if rc:
                 raise RuntimeError(f"accept launch failed: cuda error {rc}")
-            self.launches += 1
+            with self._count_lock:
+                self.launches += 1
         return out
 
 

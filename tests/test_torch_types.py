@@ -106,8 +106,12 @@ bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "jaxlib"
        or m.startswith("jaxlib.") or m == "gigapaxos_tpu"
        or m.startswith("gigapaxos_tpu.")]
-print(len(names), "BAD=" + ",".join(sorted(bad)))
+print(",".join(names), "BAD=" + ",".join(sorted(bad)))
 """
+
+# the node runtime's modules, which the walk must reach
+_RUNTIME = ("paxos.manager", "net.transport", "paxos.client",
+            "testing.harness", "testing.loadgen", "native")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -116,6 +120,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split()
-    assert int(n) >= 10  # every submodule was walked
+    walked, bad = out.stdout.split()
+    walked = set(walked.split(","))
+    assert len(walked) >= 30  # every submodule was walked
+    for mod in _RUNTIME:
+        assert f"gigapaxos_tpu_torch.{mod}" in walked, mod
     assert bad == "BAD=", bad
