@@ -10,10 +10,12 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    kernel source (all started together), the ptxas report;
 2. kernel vs plain version on the card: the accept kernel and
    ``accept_reference`` on identical clones of a G=2^20, W=16 state with
-   inactive rows, advanced cursors and promised ballots, at B = 1, 8,
-   4096, 4099 and 2^18 lanes over several seeds, at B = 2^21 (more lanes
-   than the co-resident grid holds), on 4096 lanes crowded onto 64 rows
-   (the whole-batch ballot max decides), and on the storm's lanes —
+   inactive rows, advanced cursors and promised ballots, at B = 1, 8, 64,
+   512, 4096, 4099 and 2^18 lanes over several seeds, at B = 2^21 (more
+   lanes than the co-resident grid holds), on 4096 lanes crowded onto 64
+   rows (the whole-batch ballot max decides), on phase 5's G=2^17 slab at
+   each bucket of the runtime's ladder {8, 64, 512, 4096} with live lanes
+   padded as ``ColumnarBackend`` pads a wave, and on the storm's lanes —
    ``bal``, ``acc`` and all four output rows must be bit-identical;
    times per call (the storm's lanes also with L2 cold) and the byte
    bound; then storm steps and SPI waves at a small size on the card against
@@ -36,8 +38,8 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    pipelined worker and fused waves; 4000 client requests through
    ``PaxosEmulation.run_load_fast`` at depth 448 — every request answered
    with status 0, the replicas' counts, digests and ``exec_cursor`` in
-   agreement, the host C++ hot path loaded (never its Python fallback)
-   and no JAX in the process;
+   agreement, the host C++ hot path loaded (never its Python fallback),
+   every node thread ended after ``stop`` and no JAX in the process;
 6. the kernels' launch counters, reset just before each of phases 3, 4
    and 5 and read just after, must show that those paths went through
    every kernel.
@@ -50,10 +52,14 @@ the run with a non-zero exit and no result; so does a machine with no
 CUDA device or a directory without the port beside this script.
 
 Run: ``python3 chip_smoke.py`` from the root of the repo, on one card.
+``--runtime-only cuda|cpu`` runs phase 5 alone, with the engines on the
+card or on its host's CPU (the same drive, no kernel), to tell the host's
+share of the runtime's time from the card's.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import statistics
@@ -69,9 +75,10 @@ STORM_B, STORM_STEPS = 1 << 18, 4
 SPI_B, SPI_ITERS, SPI_FUSED_ITERS = 16384, 10, 2
 # phase 5: bench.py's config 2 (3 replicas, 100K groups, capacity 2^17)
 RT_NODES, RT_GROUPS, RT_CAPACITY, RT_WINDOW = 3, 100_000, 1 << 17, 16
-# the load's time limit: at depth 448 the card's host runs the runtime
-# past its knee (PERF.md §5), and every request must still be answered
-RT_REQUESTS, RT_DEPTH, RT_TIMEOUT_S = 4000, 448, 300.0
+# the load's time limit, about two minutes: at depth 448 the card's host
+# runs the runtime past its knee (PERF.md §5), and every request must
+# still be answered within it
+RT_REQUESTS, RT_DEPTH, RT_TIMEOUT_S = 4000, 448, 120.0
 # failure detection for the phase's span.  At the default 3 s a node on
 # the card's host declares a LIVE peer dead when that peer's pings wait
 # in its worker's backlog behind seconds of queued waves, and the mass
@@ -86,7 +93,10 @@ RT_FAILURE_TIMEOUT_S = 300.0
 # phase, as the reference's pipelined e2e test sets it: the phase holds
 # every request to an answer with status 0.
 RT_BACKLOG_LIMIT = 0
-PARITY_BS = (1, 8, 4096, 4099, 1 << 18)
+PARITY_BS = (1, 8, 64, 512, 4096, 4099, 1 << 18)
+# the runtime's waves: ColumnarBackend pads n live lanes to the least
+# bucket of this ladder that holds them, on phase 5's 2^17-row slab
+RT_BUCKETS = (8, 64, 512, 4096)
 PARITY_SEEDS = (0, 1, 2)
 BIG_B = 1 << 21  # beyond the co-resident grid: grid-stride rounds
 CONTENDED = (4096, 64)  # lanes, rows
@@ -169,6 +179,22 @@ def parity_lanes(st, B, gen):
     rlo, rhi = _req_ids(B, gen, dev)
     valid = torch.rand(B, generator=gen, device=dev) < 0.9
     return g, slot, bal, rlo, rhi, valid
+
+
+def padded_lanes(st, n, B, gen):
+    """n live lanes (``parity_lanes``' mix of slots and ballots, every one
+    valid) padded to B as ``ColumnarBackend`` pads a wave: row 0,
+    ``NO_SLOT``, ``NO_BALLOT``, request id 0, invalid."""
+    from gigapaxos_tpu_torch.ops.types import NO_BALLOT, NO_SLOT
+    g, slot, bal, rlo, rhi, _ = parity_lanes(st, n, gen)
+
+    def pad(t, fill):
+        return torch.cat([t, torch.full((B - n,), fill, dtype=t.dtype,
+                                        device=t.device)])
+
+    valid = torch.arange(B, device=st.device) < n
+    return (pad(g, 0), pad(slot, NO_SLOT), pad(bal, NO_BALLOT), pad(rlo, 0),
+            pad(rhi, 0), valid)
 
 
 def contended_lanes(st, B, rows, gen):
@@ -305,6 +331,23 @@ def phase_parity(name_line):
             lanes = contended_lanes(base, B, n_rows, gen)
             max_err = max(max_err, check_accept(
                 base, lanes, f"contended, {B} lanes on {n_rows} rows")[0])
+        del base
+    # the runtime's shapes: phase 5's slab and every bucket of the ladder,
+    # with a live share drawn anew per wave
+    for seed in PARITY_SEEDS:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        base = parity_state(RT_CAPACITY, RT_WINDOW, gen)
+        for B in RT_BUCKETS:
+            n = int(torch.randint(B // 8 + 1, B + 1, (1,), generator=gen,
+                                  device="cuda"))
+            lanes = padded_lanes(base, n, B, gen)
+            err, out, st = check_accept(
+                base, lanes, f"runtime slab, seed {seed}, {n} of B={B}")
+            max_err = max(max_err, err)
+            if seed == PARITY_SEEDS[0]:
+                rows[f"rt_{B}"] = dict(time_accept(base, lanes, out, st,
+                                                   hbm), live=n)
         del base
     gen = torch.Generator(device="cuda")
     gen.manual_seed(PARITY_SEEDS[0])
@@ -580,6 +623,13 @@ def _wait(cond, timeout_s: float, what: str) -> None:
         time.sleep(0.05)
 
 
+def _runtime_threads():
+    """Live threads of the node runtime (each is named ``gp-...``)."""
+    import threading
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("gp-") and t.is_alive()]
+
+
 def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
                   n_requests=RT_REQUESTS, depth=RT_DEPTH):
     """Config 2 through the node runtime: 3 ``PaxosNode``s on loopback,
@@ -624,7 +674,8 @@ def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
                                 timeout=RT_TIMEOUT_S)
         if res["ok"] != n_requests or res["errors"]:
             raise AssertionError(f"runtime: {res['ok']} of {n_requests} "
-                                 f"answered, {res['errors']} errors")
+                                 f"answered, {res['errors']} errors: "
+                                 f"{json.dumps(res)}")
         _wait(lambda: all(sum(n.app.count.values()) == n_requests
                           for n in nodes), RT_TIMEOUT_S,
               "every replica to execute every request")
@@ -637,6 +688,12 @@ def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
         redriven = sum(n.n_redriven for n in nodes)
         emu.stop()
         emu = None
+        # a node's stop joins its threads with bounded waits; one still
+        # inside a torch call when the interpreter exits aborts the
+        # process (std::terminate), and the state read below must not
+        # race it, so every runtime thread must have ended
+        _wait(lambda: not _runtime_threads(), RT_TIMEOUT_S,
+              "the nodes' threads to end after stop")
         mems = [n.backend.memory_info() for n in nodes]
         counts = [dict(n.app.count) for n in nodes]
         digests = [dict(n.app.digest) for n in nodes]
@@ -690,7 +747,13 @@ def _runtime_lines(rt, line):
         info(f"runtime engine {i} memory_info: {json.dumps(m)}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--runtime-only", choices=("cuda", "cpu"),
+                    help="run only phase 5, with the engines on this "
+                    "device (cpu: the same drive on the card's host, no "
+                    "kernel), print its lines and exit")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         return fail("no CUDA device (torch.cuda.is_available() is false)")
     try:
@@ -701,6 +764,11 @@ def main() -> int:
         line = card_line()
         info(f"card: {line}; torch {torch.__version__}, cuda "
              f"{torch.version.cuda}, python {sys.version.split()[0]}")
+        if args.runtime_only:
+            _build.build_all()
+            _runtime_lines(phase_runtime(device=args.runtime_only), line)
+            info(f"runtime-only: engines on {args.runtime_only}")
+            return 0
         t0 = time.perf_counter()
         secs = _build.build_all()
         info(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})}"
@@ -714,7 +782,10 @@ def main() -> int:
         info(f"parity: accept kernel bit-identical to accept_reference at "
              f"B={list(PARITY_BS)}, seeds {list(PARITY_SEEDS)}; at "
              f"B={BIG_B}; {CONTENDED[0]} lanes on {CONTENDED[1]} rows; "
-             f"the storm's lanes at B={STORM_B}; G={G_FULL}, W={W_FULL}")
+             f"the storm's lanes at B={STORM_B}; G={G_FULL}, W={W_FULL}; "
+             f"and on the runtime's slab (G={RT_CAPACITY}, W={RT_WINDOW}) "
+             f"at every bucket {list(RT_BUCKETS)} with live lanes padded "
+             f"as ColumnarBackend pads them, seeds {list(PARITY_SEEDS)}")
         phase_cpu_parity()
         info("parity: storm steps and SPI waves on the card bit-identical "
              "to the same calls on the CPU (small size)")

@@ -6,7 +6,15 @@ Runs the port's two main paths at full scale under ``torch.profiler``:
   fleet at B = 2^18 lanes a step;
 - ``spi``: three ``ColumnarBackend(2**20, 16)`` replicas through the
   propose → accept ×3 → accept_reply ×3 → commit ×3 pipeline at
-  B = 16384 lanes a wave.
+  B = 16384 lanes a wave;
+- ``wave``: the node runtime's acceptor wave at config 2's shape, one
+  ``ColumnarBackend(2**17, 16)`` holding 100,000 groups and a fused
+  ``accept_commit`` of 64 lanes a wave (this wave's accepts with the
+  last wave's commits, as a node's acceptor stage sends them), driven
+  from one thread, then from three threads at once, one engine each (the
+  three nodes of ``chip_smoke.py`` phase 5 in one process), then from
+  one thread beside a thread that runs only Python, at the interpreter's
+  switch interval and at a tenth of it.
 
 For each it reports the host wall per step and decisions per second
 (profiler off), then, from a profiled window of as many steps, the
@@ -14,25 +22,35 @@ device busy share (device-side event time over that window's wall), the
 top device kernels by time with their share, and the accept kernel's
 share (found by its name, ``accept_cuda.KERNEL_NAME``; a window that
 launched it but shows no time for it is an error, not a 0% share).
-One warm-up step precedes both windows.
+One warm-up step precedes both windows.  For ``wave`` it reports the
+host wall of a wave (median and mean), alone, with three engine threads
+and beside a Python-only thread, the
+profiled device time and busy share, and the CUDA runtime calls a wave
+makes (launches, copies, synchronizations) by name.
 
-Run: ``python -m gigapaxos_tpu_torch.breakdown [--out FILE.json]`` on a
-machine with a CUDA card (it exits non-zero without one).
+Run: ``python -m gigapaxos_tpu_torch.breakdown [--paths storm,spi,wave]
+[--out FILE.json]`` on a machine with a CUDA card (it exits non-zero
+without one).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
+import threading
 import time
+from typing import List
 
 import numpy as np
 import torch
 
 G, W, R = 1 << 20, 16, 3
 STORM_B, SPI_B = 1 << 18, 16384
+# the runtime's acceptor wave at config 2 (chip_smoke.py phase 5)
+RT_G, RT_GROUPS, RT_LANES, RT_WAVES = 1 << 17, 100_000, 64, 100
 
 
 def _device_us(evt) -> float:
@@ -150,10 +168,165 @@ def spi_breakdown(steps: int = 4) -> dict:
     return out
 
 
+def _acceptor(seed: int, waves: int, device="cuda"):
+    """A runtime-shaped acceptor engine and a function that runs its next
+    fused wave: ``RT_LANES`` accepts on distinct live rows at each row's
+    next slot, with the previous wave's lanes committed.  The lanes are
+    made before any wave runs, so a wave's wall is the engine's alone.
+    ``device="cpu"`` rehearses the drive off the card."""
+    from gigapaxos_tpu_torch.paxos.backend import ColumnarBackend
+    b = ColumnarBackend(RT_G, W, device=device)
+    rows = np.arange(RT_GROUPS, dtype=np.int32)
+    zeros = np.zeros(RT_GROUPS, np.int32)
+    b.create(rows, np.full(RT_GROUPS, R, np.int32), zeros, zeros,
+             np.zeros(RT_GROUPS, bool))
+    rng = np.random.default_rng(seed)
+    nxt = np.zeros(RT_GROUPS, np.int32)
+    lanes = []
+    for _ in range(waves + 1):
+        g = rng.permutation(RT_GROUPS)[:RT_LANES].astype(np.int32)
+        lanes.append((g, nxt[g].copy(),
+                      rng.integers(1, 1 << 62, RT_LANES).astype(np.uint64)))
+        nxt[g] += 1
+    bal = np.zeros(RT_LANES, np.int32)
+    empty = (np.zeros(0, np.int32), np.zeros(0, np.int32),
+             np.zeros(0, np.uint64))
+    at = [0]
+
+    def wave():
+        i = at[0]
+        at[0] += 1
+        g, slot, reqs = lanes[i]
+        ares, cres = b.accept_commit(g, slot, bal, reqs,
+                                     *(lanes[i - 1] if i else empty))
+        if not ares.acked.all() or not cres.applied.all():
+            raise RuntimeError("breakdown: a runtime wave was refused")
+
+    return b, wave
+
+
+def _walls(wave, waves: int) -> List[float]:
+    out = []
+    for _ in range(waves):
+        t0 = time.perf_counter()
+        wave()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _beside_python(wave, waves: int) -> List[float]:
+    """Walls of ``waves`` waves while another thread runs only Python."""
+    stop = threading.Event()
+
+    def spin():
+        n = 0
+        while not stop.is_set():
+            n += 1
+
+    spinner = threading.Thread(target=spin)
+    spinner.start()
+    try:
+        return _walls(wave, waves)
+    finally:
+        stop.set()
+        spinner.join()
+
+
+def wave_breakdown(waves: int = RT_WAVES) -> dict:
+    """The runtime's acceptor wave alone and three at once (see the
+    module docstring); each engine runs a warm-up wave first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    engines = [_acceptor(seed, 2 * waves + 24) for seed in range(R)]
+    for _, wave in engines:
+        wave()
+    torch.cuda.synchronize()
+    alone = _walls(engines[0][1], waves)
+    per_thread: List[List[float]] = [[] for _ in engines]
+
+    def drive(k):
+        per_thread[k] = _walls(engines[k][1], waves)
+
+    threads = [threading.Thread(target=drive, args=(k,))
+               for k in range(len(engines))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    together_wall = time.perf_counter() - t0
+    together = [w for ws in per_thread for w in ws]
+    # one engine thread beside a thread that only runs Python, as the
+    # runtime's decode, emit, loop and client threads do: every torch
+    # call of a wave drops the GIL and must take it back.  At the
+    # interpreter's switch interval, then at a tenth of it
+    beside_python = _beside_python(engines[1][1], waves)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(interval / 10)
+    try:
+        beside_python_short = _beside_python(engines[2][1], waves)
+    finally:
+        sys.setswitchinterval(interval)
+    n_prof = min(20, waves)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            engines[0][1]()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    evts = prof.key_averages()
+    busy_us = sum(_device_us(e) for e in evts
+                  if e.device_type == DeviceType.CUDA)
+    kernels = sum(e.count for e in evts
+                  if e.device_type == DeviceType.CUDA and _device_us(e) > 0)
+    runtime_calls = {e.key: e.count / n_prof for e in evts
+                     if e.device_type == DeviceType.CPU
+                     and e.key.startswith("cuda")}
+    torch_ops = sum(e.count for e in evts
+                    if e.device_type == DeviceType.CPU
+                    and e.key.startswith("aten::")) / n_prof
+    del engines
+    torch.cuda.empty_cache()
+    ms = [w * 1e3 for w in alone]
+    ms3 = [w * 1e3 for w in together]
+    msp = [w * 1e3 for w in beside_python]
+    msq = [w * 1e3 for w in beside_python_short]
+    return {
+        "lanes": RT_LANES, "capacity": RT_G, "groups": RT_GROUPS,
+        "waves": waves,
+        "alone_ms_median": statistics.median(ms),
+        "alone_ms_mean": statistics.fmean(ms),
+        "threads": len(threads),
+        "together_ms_median": statistics.median(ms3),
+        "together_ms_mean": statistics.fmean(ms3),
+        "together_waves_per_s": len(together) / together_wall,
+        "beside_python_ms_median": statistics.median(msp),
+        "beside_python_ms_mean": statistics.fmean(msp),
+        "switch_interval_s": interval,
+        "beside_python_short_interval_ms_median": statistics.median(msq),
+        "beside_python_short_interval_ms_mean": statistics.fmean(msq),
+        "alone_waves_per_s": len(ms) / (sum(ms) / 1e3),
+        "profiled_wall_ms_per_wave": prof_wall * 1e3 / n_prof,
+        "device_ms_per_wave": busy_us / 1e3 / n_prof,
+        "device_busy_share": busy_us / (prof_wall * 1e6),
+        "device_events_per_wave": kernels / n_prof,
+        "aten_ops_per_wave": torch_ops,
+        "cuda_runtime_calls_per_wave": runtime_calls,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--paths", default="storm,spi,wave",
+                    help="comma-separated paths to run (default: all)")
     ap.add_argument("--out", help="also write the result as JSON here")
     args = ap.parse_args(argv)
+    paths = [p for p in args.paths.split(",") if p]
+    runs = {"storm": storm_breakdown, "spi": spi_breakdown,
+            "wave": wave_breakdown}
+    if any(p not in runs for p in paths):
+        ap.error(f"--paths takes {','.join(runs)}")
     if not torch.cuda.is_available():
         print("breakdown: no CUDA device", file=sys.stderr)
         return 1
@@ -161,9 +334,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    res = {"card": card, "torch": torch.__version__,
-           "storm": storm_breakdown(), "spi": spi_breakdown()}
-    for path in ("storm", "spi"):
+    res = {"card": card, "torch": torch.__version__}
+    for path in paths:
+        res[path] = runs[path]()
+    for path in [p for p in ("storm", "spi") if p in res]:
         r = res[path]
         print(f"{path}: {r['wall_ms_per_step']:.3f} ms/step wall, "
               f"{r['device_ms_per_step']:.3f} ms/step device, device busy "
@@ -178,12 +352,29 @@ def main(argv=None) -> int:
             print(f"  {k['device_us_per_step']:10.1f} us "
                   f"{k['share_of_device']:6.1%} x{k['calls_per_step']:.0f}"
                   f"  {k['name']}")
+    if "wave" in res:
+        r = res["wave"]
+        print(f"wave: {r['lanes']} lanes on a {r['capacity']}-row slab: "
+              f"{r['alone_ms_median']:.3f} ms median wall alone, "
+              f"{r['together_ms_median']:.3f} ms with {r['threads']} "
+              f"engine threads, {r['beside_python_ms_median']:.3f} ms "
+              f"beside one Python-only thread "
+              f"({r['beside_python_short_interval_ms_median']:.3f} ms at a "
+              f"tenth of the {r['switch_interval_s']} s switch interval); "
+              f"device {r['device_ms_per_wave']:.3f} ms a wave, "
+              f"busy {r['device_busy_share']:.1%} of "
+              f"{r['profiled_wall_ms_per_wave']:.3f} ms profiled; "
+              f"{r['aten_ops_per_wave']:.0f} aten ops and "
+              f"{r['device_events_per_wave']:.0f} device events a wave "
+              f"[{card}]")
+        for k, n in sorted(r["cuda_runtime_calls_per_wave"].items()):
+            print(f"  {n:8.2f} a wave  {k}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
-    print(json.dumps({"card": card, "storm_decisions_per_s":
-                      res["storm"]["decisions_per_s"],
-                      "spi_decisions_per_s": res["spi"]["decisions_per_s"]}))
+    print(json.dumps({"card": card, **{
+        f"{p}_decisions_per_s": res[p]["decisions_per_s"]
+        for p in ("storm", "spi") if p in res}}))
     return 0
 
 

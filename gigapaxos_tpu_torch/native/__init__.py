@@ -3,7 +3,10 @@
 See ``hotpath.cc`` for what runs native and why (ref analogs:
 ``nio/MessageExtractor``, ``paxospackets`` byteification,
 ``utils/MultiArrayMap``/``paxosutil/IntegerMap``).  The port's own copy
-of ``gigapaxos_tpu/native/`` (the same sources and surface).  The module
+of ``gigapaxos_tpu/native/`` (the same surface, less the C++ per-instance
+group store ``groupstore.cc``/``GroupStore``, which only the native
+engine uses and which waits for that engine's port; the WAL encoders of
+that file live in ``hotpath.cc`` here).  The module
 compiles itself with ``g++`` on first use into ``native/_build/``
 (listed in ``.gitignore``), named by a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one is loaded as it is; set
@@ -41,8 +44,7 @@ from gigapaxos_tpu_torch.utils.logutil import get_logger
 log = get_logger("gp.native")
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SRCS = [os.path.join(_DIR, "hotpath.cc"),
-         os.path.join(_DIR, "groupstore.cc")]
+_SRCS = [os.path.join(_DIR, "hotpath.cc")]
 _BUILD_DIR = os.path.join(_DIR, "_build")
 _CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
@@ -137,51 +139,12 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.gp_map_del.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
         lib.gp_map_size.restype = i64
         lib.gp_map_size.argtypes = [ctypes.c_void_p]
-        # group store (per-instance C++ backend)
-        vp, i32_, u8 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint8
-        lib.gp_gs_new.restype = vp
-        lib.gp_gs_new.argtypes = [i64, i32_]
-        lib.gp_gs_free.argtypes = [vp]
-        lib.gp_gs_create.argtypes = [vp, i64, i32p, i32p, i32p, i32p, u8p]
-        lib.gp_gs_delete.argtypes = [vp, i64, i32p]
-        lib.gp_gs_accept.argtypes = [vp, i64, i32p, i32p, i32p, u64p, u8p,
-                                     u8p, u8p, i32p]
-        lib.gp_gs_propose.argtypes = [vp, i64, i32p, u64p, u8p, i32p, i32p]
-        lib.gp_gs_accept_reply.argtypes = [vp, i64, i32p, i32p, i32p, i32p,
-                                           u8p, u8p, u8p, u64p, i32p]
-        lib.gp_gs_commit.argtypes = [vp, i64, i32p, i32p, u64p, u8p, u8p,
-                                     u8p, i32p]
-        lib.gp_gs_prepare.argtypes = [vp, i64, i32p, i32p, u8p, i32p, i32p,
-                                      i32p, i32p, u64p]
-        lib.gp_gs_install.argtypes = [vp, i64, i32p, i32p, i32p, i32_,
-                                      i32p, u64p]
-        lib.gp_gs_set_cursor.argtypes = [vp, i64, i32p, i32p, i32p]
-        lib.gp_gs_gc.argtypes = [vp, i64, i32p, i32p]
-        lib.gp_gs_cursor_of.restype = i32_
-        lib.gp_gs_cursor_of.argtypes = [vp, i32_]
-        lib.gp_gs_snapshot.argtypes = [vp, i32_, i32p, i32p, i32p, u64p,
-                                       i32p, u64p, i32p, u64p, u64p, u8p]
-        lib.gp_gs_restore.argtypes = [vp, i32_, i32p, i32p, i32p, u64p,
-                                      i32p, u64p, i32p, u64p, u64p, u8p]
         lib.gp_encode_wal.restype = i64
         lib.gp_encode_wal.argtypes = [i64, u8p, u64p, i32p, i32p, u64p,
                                       i64p, u8p, u8p, i64]
         lib.gp_encode_wal_crc.restype = i64
         lib.gp_encode_wal_crc.argtypes = [i64, u8p, u64p, i32p, i32p,
                                           u64p, i64p, u8p, u8p, i64]
-        dbl, dblp = ctypes.c_double, ctypes.c_void_p
-        lib.gp_gs_handle_accepts.restype = i64
-        lib.gp_gs_handle_accepts.argtypes = [
-            vp, i64, i32p, i32p, i32p, u64p, dbl, i32p, i64p, dblp, dblp,
-            u8p, u8p, u8p, u8p, i32p]
-        lib.gp_gs_handle_replies.restype = i64
-        lib.gp_gs_handle_replies.argtypes = [
-            vp, i64, i32p, i32p, i32p, i32p, u8p, i32p, i32_, i32p, u8p,
-            u64p, i32p]
-        lib.gp_gs_handle_commits.restype = i64
-        lib.gp_gs_handle_commits.argtypes = [
-            vp, i64, i32p, i32p, i32p, u64p, dbl, i32p, dblp, u8p, u8p,
-            u8p, i32p, i32p, u64p, i64]
         EngineLedger.note_load("native:_hotpath", built)
         _lib = lib
         return _lib
@@ -528,277 +491,3 @@ def encode_wal(rtype: np.ndarray, gkey: np.ndarray, slot: np.ndarray,
             if p:
                 parts.append(p)
     return b"".join(parts)
-
-
-# --------------------------------------------------------------------------
-# GroupStore: the C++ per-instance backend's storage engine
-# --------------------------------------------------------------------------
-
-
-class GroupStore:
-    """ctypes handle to the C++ per-instance group store (groupstore.cc).
-
-    Raises RuntimeError if the native library is unavailable — callers
-    (``backend.NativeBackend``) fall back to another backend instead.
-    Single-threaded by contract (the node worker owns it), matching the
-    manager's single-writer discipline.
-    """
-
-    def __init__(self, capacity: int, window: int):
-        lib = _load()
-        if lib is None:
-            raise RuntimeError("native library unavailable")
-        self._lib = lib
-        self.capacity = capacity
-        self.window = window
-        self._h = lib.gp_gs_new(capacity, window)
-        if not self._h:
-            raise MemoryError("gp_gs_new")
-
-    def __del__(self):
-        if getattr(self, "_h", None) and self._lib is not None:
-            self._lib.gp_gs_free(self._h)
-            self._h = None
-
-    @staticmethod
-    def _i32(a) -> np.ndarray:
-        return np.ascontiguousarray(a, np.int32)
-
-    @staticmethod
-    def _u64(a) -> np.ndarray:
-        return np.ascontiguousarray(a, np.uint64)
-
-    def create(self, rows, members, versions, init_bal, self_coord):
-        n = len(rows)
-        self._lib.gp_gs_create(
-            self._h, n, _p(self._i32(rows), ctypes.c_int32),
-            _p(self._i32(members), ctypes.c_int32),
-            _p(self._i32(versions), ctypes.c_int32),
-            _p(self._i32(init_bal), ctypes.c_int32),
-            _p(np.ascontiguousarray(self_coord, np.uint8),
-               ctypes.c_uint8))
-
-    def delete(self, rows):
-        self._lib.gp_gs_delete(
-            self._h, len(rows), _p(self._i32(rows), ctypes.c_int32))
-
-    def accept(self, rows, slots, bals, reqs):
-        n = len(rows)
-        acked = np.empty(n, np.uint8)
-        stale = np.empty(n, np.uint8)
-        ow = np.empty(n, np.uint8)
-        cur = np.empty(n, np.int32)
-        self._lib.gp_gs_accept(
-            self._h, n, _p(self._i32(rows), ctypes.c_int32),
-            _p(self._i32(slots), ctypes.c_int32),
-            _p(self._i32(bals), ctypes.c_int32),
-            _p(self._u64(reqs), ctypes.c_uint64),
-            _p(acked, ctypes.c_uint8), _p(stale, ctypes.c_uint8),
-            _p(ow, ctypes.c_uint8), _p(cur, ctypes.c_int32))
-        return acked.astype(bool), stale.astype(bool), ow.astype(bool), cur
-
-    def propose(self, rows, reqs):
-        n = len(rows)
-        status = np.empty(n, np.uint8)
-        slot = np.empty(n, np.int32)
-        cbal = np.empty(n, np.int32)
-        self._lib.gp_gs_propose(
-            self._h, n, _p(self._i32(rows), ctypes.c_int32),
-            _p(self._u64(reqs), ctypes.c_uint64),
-            _p(status, ctypes.c_uint8), _p(slot, ctypes.c_int32),
-            _p(cbal, ctypes.c_int32))
-        return status, slot, cbal
-
-    def accept_reply(self, rows, slots, bals, senders, acked):
-        n = len(rows)
-        newly = np.empty(n, np.uint8)
-        pre = np.empty(n, np.uint8)
-        dec_req = np.empty(n, np.uint64)
-        dec_bal = np.empty(n, np.int32)
-        self._lib.gp_gs_accept_reply(
-            self._h, n, _p(self._i32(rows), ctypes.c_int32),
-            _p(self._i32(slots), ctypes.c_int32),
-            _p(self._i32(bals), ctypes.c_int32),
-            _p(self._i32(senders), ctypes.c_int32),
-            _p(np.ascontiguousarray(acked, np.uint8), ctypes.c_uint8),
-            _p(newly, ctypes.c_uint8), _p(pre, ctypes.c_uint8),
-            _p(dec_req, ctypes.c_uint64), _p(dec_bal, ctypes.c_int32))
-        return newly.astype(bool), pre.astype(bool), dec_req, dec_bal
-
-    def commit(self, rows, slots, reqs):
-        n = len(rows)
-        applied = np.empty(n, np.uint8)
-        stale = np.empty(n, np.uint8)
-        ow = np.empty(n, np.uint8)
-        cur = np.empty(n, np.int32)
-        self._lib.gp_gs_commit(
-            self._h, n, _p(self._i32(rows), ctypes.c_int32),
-            _p(self._i32(slots), ctypes.c_int32),
-            _p(self._u64(reqs), ctypes.c_uint64),
-            _p(applied, ctypes.c_uint8), _p(stale, ctypes.c_uint8),
-            _p(ow, ctypes.c_uint8), _p(cur, ctypes.c_int32))
-        return applied.astype(bool), stale.astype(bool), ow.astype(bool), cur
-
-    def prepare(self, rows, bals):
-        n, W = len(rows), self.window
-        acked = np.empty(n, np.uint8)
-        cur_bal = np.empty(n, np.int32)
-        cursor = np.empty(n, np.int32)
-        win_slot = np.empty((n, W), np.int32)
-        win_bal = np.empty((n, W), np.int32)
-        win_req = np.empty((n, W), np.uint64)
-        self._lib.gp_gs_prepare(
-            self._h, n, _p(self._i32(rows), ctypes.c_int32),
-            _p(self._i32(bals), ctypes.c_int32),
-            _p(acked, ctypes.c_uint8), _p(cur_bal, ctypes.c_int32),
-            _p(cursor, ctypes.c_int32), _p(win_slot, ctypes.c_int32),
-            _p(win_bal, ctypes.c_int32), _p(win_req, ctypes.c_uint64))
-        return acked.astype(bool), cur_bal, cursor, win_slot, win_bal, \
-            win_req
-
-    def install(self, rows, cbals, next_slots, carry_slot, carry_req):
-        n = len(rows)
-        cs = self._i32(carry_slot)
-        cr = self._u64(carry_req)
-        M = cs.shape[1] if cs.ndim == 2 else 0
-        self._lib.gp_gs_install(
-            self._h, n, _p(self._i32(rows), ctypes.c_int32),
-            _p(self._i32(cbals), ctypes.c_int32),
-            _p(self._i32(next_slots), ctypes.c_int32), M,
-            _p(cs, ctypes.c_int32), _p(cr, ctypes.c_uint64))
-
-    def set_cursor(self, rows, cursors, next_slots):
-        self._lib.gp_gs_set_cursor(
-            self._h, len(rows), _p(self._i32(rows), ctypes.c_int32),
-            _p(self._i32(cursors), ctypes.c_int32),
-            _p(self._i32(next_slots), ctypes.c_int32))
-
-    def gc(self, rows, upto):
-        self._lib.gp_gs_gc(
-            self._h, len(rows), _p(self._i32(rows), ctypes.c_int32),
-            _p(self._i32(upto), ctypes.c_int32))
-
-    def cursor_of(self, row: int) -> int:
-        return int(self._lib.gp_gs_cursor_of(self._h, row))
-
-    # -- fused stage handlers (one C call per worker batch per stage) ----
-
-    def handle_accepts(self, rows, slots, bals, reqs, now, bal_mirror,
-                       acc_hi, acc_ts, la):
-        """Coalesce + accept + mirror updates in one call; returns
-        (keep, acked, stale, out_window, reply_bal)."""
-        n = len(rows)
-        keep = np.empty(n, np.uint8)
-        acked = np.empty(n, np.uint8)
-        stale = np.empty(n, np.uint8)
-        ow = np.empty(n, np.uint8)
-        reply_bal = np.empty(n, np.int32)
-        rc = self._lib.gp_gs_handle_accepts(
-            self._h, n, _p(self._i32(rows), ctypes.c_int32),
-            _p(self._i32(slots), ctypes.c_int32),
-            _p(self._i32(bals), ctypes.c_int32),
-            _p(self._u64(reqs), ctypes.c_uint64), float(now),
-            _p(bal_mirror, ctypes.c_int32),
-            _p(acc_hi, ctypes.c_int64), _p(acc_ts, ctypes.c_double),
-            _p(la, ctypes.c_double), _p(keep, ctypes.c_uint8),
-            _p(acked, ctypes.c_uint8), _p(stale, ctypes.c_uint8),
-            _p(ow, ctypes.c_uint8), _p(reply_bal, ctypes.c_int32))
-        if rc < 0:
-            raise MemoryError("gp_gs_handle_accepts")
-        return (keep.astype(bool), acked.astype(bool),
-                stale.astype(bool), ow.astype(bool), reply_bal)
-
-    def handle_replies(self, rows, slots, bals, senders, ack_flags,
-                       member_mat, bal_mirror):
-        """Dedupe + member-index + majority count in one call; returns
-        (newly, dec_req, dec_bal)."""
-        n = len(rows)
-        newly = np.empty(n, np.uint8)
-        dec_req = np.empty(n, np.uint64)
-        dec_bal = np.empty(n, np.int32)
-        rc = self._lib.gp_gs_handle_replies(
-            self._h, n, _p(self._i32(rows), ctypes.c_int32),
-            _p(self._i32(slots), ctypes.c_int32),
-            _p(self._i32(bals), ctypes.c_int32),
-            _p(self._i32(senders), ctypes.c_int32),
-            _p(np.ascontiguousarray(ack_flags, np.uint8),
-               ctypes.c_uint8),
-            _p(member_mat, ctypes.c_int32), member_mat.shape[1],
-            _p(bal_mirror, ctypes.c_int32), _p(newly, ctypes.c_uint8),
-            _p(dec_req, ctypes.c_uint64), _p(dec_bal, ctypes.c_int32))
-        if rc < 0:
-            raise MemoryError("gp_gs_handle_replies")
-        return newly.astype(bool), dec_req, dec_bal
-
-    def handle_commits(self, rows, slots, bals, reqs, now, bal_mirror,
-                       la):
-        """Dedupe-keep-last + decision install + frontier walk; returns
-        (applied, stale, out_window, exec_rows, exec_slots, exec_reqs)
-        where the exec_* arrays list newly contiguous decisions in
-        execution order."""
-        n = len(rows)
-        applied = np.empty(n, np.uint8)
-        stale = np.empty(n, np.uint8)
-        ow = np.empty(n, np.uint8)
-        cap = n * self.window + self.window
-        exec_rows = np.empty(cap, np.int32)
-        exec_slots = np.empty(cap, np.int32)
-        exec_reqs = np.empty(cap, np.uint64)
-        m = self._lib.gp_gs_handle_commits(
-            self._h, n, _p(self._i32(rows), ctypes.c_int32),
-            _p(self._i32(slots), ctypes.c_int32),
-            _p(self._i32(bals), ctypes.c_int32),
-            _p(self._u64(reqs), ctypes.c_uint64), float(now),
-            _p(bal_mirror, ctypes.c_int32), _p(la, ctypes.c_double),
-            _p(applied, ctypes.c_uint8), _p(stale, ctypes.c_uint8),
-            _p(ow, ctypes.c_uint8), _p(exec_rows, ctypes.c_int32),
-            _p(exec_slots, ctypes.c_int32),
-            _p(exec_reqs, ctypes.c_uint64), cap)
-        if m < 0:
-            raise MemoryError("gp_gs_handle_commits")
-        return (applied.astype(bool), stale.astype(bool),
-                ow.astype(bool), exec_rows[:m], exec_slots[:m],
-                exec_reqs[:m])
-
-    def snapshot_row(self, row: int) -> dict:
-        W = self.window
-        scal = np.empty(8, np.int32)
-        a_slot = np.empty(W, np.int32)
-        a_bal = np.empty(W, np.int32)
-        a_req = np.empty(W, np.uint64)
-        d_slot = np.empty(W, np.int32)
-        d_req = np.empty(W, np.uint64)
-        v_slot = np.empty(W, np.int32)
-        v_votes = np.empty(W, np.uint64)
-        v_req = np.empty(W, np.uint64)
-        v_emitted = np.empty(W, np.uint8)
-        self._lib.gp_gs_snapshot(
-            self._h, row, _p(scal, ctypes.c_int32),
-            _p(a_slot, ctypes.c_int32), _p(a_bal, ctypes.c_int32),
-            _p(a_req, ctypes.c_uint64), _p(d_slot, ctypes.c_int32),
-            _p(d_req, ctypes.c_uint64), _p(v_slot, ctypes.c_int32),
-            _p(v_votes, ctypes.c_uint64), _p(v_req, ctypes.c_uint64),
-            _p(v_emitted, ctypes.c_uint8))
-        return {"scal": scal, "a_slot": a_slot, "a_bal": a_bal,
-                "a_req": a_req, "d_slot": d_slot, "d_req": d_req,
-                "v_slot": v_slot, "v_votes": v_votes, "v_req": v_req,
-                "v_emitted": v_emitted}
-
-    def restore_row(self, row: int, snap: dict) -> None:
-        g = {k: np.ascontiguousarray(
-                snap[k], np.uint8 if k == "v_emitted" else
-                (np.uint64 if k in ("a_req", "d_req", "v_votes", "v_req")
-                 else np.int32))
-             for k in ("scal", "a_slot", "a_bal", "a_req", "d_slot",
-                       "d_req", "v_slot", "v_votes", "v_req", "v_emitted")}
-        self._lib.gp_gs_restore(
-            self._h, row, _p(g["scal"], ctypes.c_int32),
-            _p(g["a_slot"], ctypes.c_int32),
-            _p(g["a_bal"], ctypes.c_int32),
-            _p(g["a_req"], ctypes.c_uint64),
-            _p(g["d_slot"], ctypes.c_int32),
-            _p(g["d_req"], ctypes.c_uint64),
-            _p(g["v_slot"], ctypes.c_int32),
-            _p(g["v_votes"], ctypes.c_uint64),
-            _p(g["v_req"], ctypes.c_uint64),
-            _p(g["v_emitted"], ctypes.c_uint8))

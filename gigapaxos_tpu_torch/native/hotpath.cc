@@ -1,5 +1,5 @@
-// Native host hot path: wire-format scan/parse/encode + batched group-key
-// lookup.
+// Native host hot path: wire-format scan/parse/encode, batched group-key
+// lookup, and the WAL record batch encoders.
 //
 // The reference (rchiesse/gigapaxos) is pure Java; its host CPU goes into
 // NIO frame extraction (nio/MessageExtractor.java), per-packet
@@ -288,5 +288,90 @@ int64_t gp_map_del(void* h, uint64_t k) {
 }
 
 int64_t gp_map_size(void* h) { return ((GpMap*)h)->size; }
+
+}  // extern "C"
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// WAL record batch encode (ref: SQLPaxosLogger batched logging): n records
+// -> one contiguous buffer in logger.py's _REC layout
+// [u8 rtype | u64 gkey | i32 slot | i32 bal | u64 req | u32 len | payload].
+// Returns bytes written or -1 if out_cap too small.
+// ---------------------------------------------------------------------------
+
+int64_t gp_encode_wal(int64_t n, const uint8_t* rtype, const uint64_t* gkey,
+                      const int32_t* slot, const int32_t* bal,
+                      const uint64_t* req, const int64_t* pay_off,
+                      const uint8_t* pay, uint8_t* out, int64_t out_cap) {
+  int64_t w = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t plen = pay_off[i + 1] - pay_off[i];
+    if (w + 29 + plen > out_cap) return -1;
+    out[w] = rtype[i];
+    std::memcpy(out + w + 1, &gkey[i], 8);
+    std::memcpy(out + w + 9, &slot[i], 4);
+    std::memcpy(out + w + 13, &bal[i], 4);
+    std::memcpy(out + w + 17, &req[i], 8);
+    const uint32_t pl32 = (uint32_t)plen;
+    std::memcpy(out + w + 25, &pl32, 4);
+    std::memcpy(out + w + 29, pay + pay_off[i], plen);
+    w += 29 + plen;
+  }
+  return w;
+}
+
+// ---------------------------------------------------------------------------
+// v2 (PC.WAL_CRC) variant: each record carries a trailing CRC32 over
+// header+payload.  The polynomial/reflection/init/final-xor match
+// zlib.crc32 exactly — logger.py verifies with zlib on replay.
+// ---------------------------------------------------------------------------
+
+static const uint32_t* gp_crc32_table() {
+  static uint32_t table[256];
+  static const bool init = [] {
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k)
+        c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+      table[i] = c;
+    }
+    return true;
+  }();
+  (void)init;
+  return table;
+}
+
+static uint32_t gp_crc32(const uint8_t* p, int64_t n) {
+  const uint32_t* table = gp_crc32_table();
+  uint32_t crc = 0xFFFFFFFFu;
+  for (int64_t i = 0; i < n; ++i)
+    crc = table[(crc ^ p[i]) & 0xFFu] ^ (crc >> 8);
+  return ~crc;
+}
+
+int64_t gp_encode_wal_crc(int64_t n, const uint8_t* rtype,
+                          const uint64_t* gkey, const int32_t* slot,
+                          const int32_t* bal, const uint64_t* req,
+                          const int64_t* pay_off, const uint8_t* pay,
+                          uint8_t* out, int64_t out_cap) {
+  int64_t w = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t plen = pay_off[i + 1] - pay_off[i];
+    if (w + 33 + plen > out_cap) return -1;
+    out[w] = rtype[i];
+    std::memcpy(out + w + 1, &gkey[i], 8);
+    std::memcpy(out + w + 9, &slot[i], 4);
+    std::memcpy(out + w + 13, &bal[i], 4);
+    std::memcpy(out + w + 17, &req[i], 8);
+    const uint32_t pl32 = (uint32_t)plen;
+    std::memcpy(out + w + 25, &pl32, 4);
+    std::memcpy(out + w + 29, pay + pay_off[i], plen);
+    const uint32_t crc = gp_crc32(out + w, 29 + plen);
+    std::memcpy(out + w + 29 + plen, &crc, 4);
+    w += 33 + plen;
+  }
+  return w;
+}
 
 }  // extern "C"

@@ -215,6 +215,36 @@ def test_port_node_restarts_from_logdir(tmp_path, writer):
         node2.stop()
 
 
+def _runtime_threads():
+    import threading
+    return {t for t in threading.enumerate()
+            if t.name.startswith("gp-") and t.is_alive()}
+
+
+@pytest.mark.parametrize("pipeline", [False, True],
+                         ids=["worker", "pipelined"])
+def test_stop_ends_every_runtime_thread(tmp_path, pipeline):
+    """After a drained load, ``stop`` leaves no thread of the nodes
+    running: a daemon thread still inside a torch call when the
+    interpreter exits aborts the process (``std::terminate``)."""
+    Config.set(PC.COLUMNAR_DEVICE, "cpu")
+    Config.set(PC.PIPELINE_WORKER, pipeline)
+    before = _runtime_threads()
+    emu = PaxosEmulation(str(tmp_path), n_nodes=3, n_groups=4,
+                         backend="columnar", capacity=64, window=W,
+                         failure_timeout_s=300.0)
+    try:
+        r = emu.run_load_fast(24, concurrency=8, timeout=tscale(30))
+        assert (r["ok"], r["errors"]) == (24, 0), r
+        assert _runtime_threads() - before, "the nodes started no thread"
+    finally:
+        emu.stop()
+    deadline = time.time() + tscale(10)
+    while time.time() < deadline and _runtime_threads() - before:
+        time.sleep(0.02)
+    assert not {t.name for t in _runtime_threads() - before}
+
+
 # -- guards --------------------------------------------------------------
 
 
@@ -258,3 +288,19 @@ def test_node_defaults_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PaxosNode(0, {0: ("127.0.0.1", 1)}, ti.CounterApp(),
                   str(tmp_path / "n0"), capacity=64)
+
+
+# -- the runtime's wave driver (breakdown --paths wave) ------------------
+
+
+def test_runtime_wave_driver_on_cpu():
+    """The ``wave`` path's acceptor drive, rehearsed on the CPU: every
+    wave's accepts are acked and the previous wave's commits applied, so
+    each wave advances the cursors of the rows it commits by one."""
+    from gigapaxos_tpu_torch import breakdown as bd
+    from gigapaxos_tpu_torch.ops.types import state_to_numpy
+    b, wave = bd._acceptor(0, 4, device="cpu")
+    for _ in range(4):
+        wave()
+    assert int(state_to_numpy(b.state)["exec_cursor"].sum()) == \
+        3 * bd.RT_LANES
