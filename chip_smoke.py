@@ -20,7 +20,12 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    times per call (the storm's lanes also with L2 cold) and the byte
    bound; then storm steps and SPI waves at a small size on the card against
    the same calls on the CPU (the plain path the CPU tests hold against
-   the JAX package) — every result and state plane equal;
+   the JAX package) — every result and state plane equal; and
+   ``prepare`` and ``install_coordinator`` (torch-op bodies, the
+   takeover's phase 1) on the card against the CPU on phase 5's slab at
+   every bucket, then one ``ColumnarBackend.prepare`` of 33,334 rows
+   (chunked), the install of its acked rows and the pause path's row
+   snapshots and restores — bit-identical;
 3. the decide storm: ``make_fleet(2**20, 16, R=3)`` and several
    ``decide_storm_step`` calls at B = 2^18 — every step decides every
    granted lane, the replicas' ``dec`` planes agree, and ``exec_cursor``
@@ -40,9 +45,25 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    with status 0, the replicas' counts, digests and ``exec_cursor`` in
    agreement, the host C++ hot path loaded (never its Python fallback),
    every node thread ended after ``stop`` and no JAX in the process;
-6. the kernels' launch counters, reset just before each of phases 3, 4
-   and 5 and read just after, must show that those paths went through
-   every kernel.
+6. failover at config 2: the same three nodes and 100,000 groups with
+   the flight recorder armed on every node (no age eviction), failure
+   detection at the defaults, the deactivator off (the phase reads every
+   group off the slab), 2000 requests at depth 64 (no coordinator
+   installed before the kill), node 0 killed, node 1 installs itself
+   for every group node 0 led (about 33,000) through prepare and install
+   on the card within 120 s, then 2000 more requests through the
+   survivors — every request answered with status 0, the survivors'
+   counts, digests and ``exec_cursor`` in agreement, the sampled takeover
+   rows led by node 1, the accept kernel launched after the kill;
+7. replay on the card: ``tests/data/reference.gpbb`` and
+   ``tests/data/failover_ref.gpbb`` (both written by the JAX package,
+   the second a takeover) and node 1's capture from phase 6 (100,000
+   groups, nothing evicted, the takeover's prepare waves verified) each
+   replay ``MATCH`` through the port's node, with the accept kernel
+   launched in each;
+8. the kernels' launch counters, reset just before each of phases 3 to
+   7 and read just after, must show that those paths went through every
+   kernel.
 
 It prints one JSON line listing every kernel (route, source, the TPU
 kernel it replaces, launches on the main path, error against the plain
@@ -54,7 +75,8 @@ CUDA device or a directory without the port beside this script.
 Run: ``python3 chip_smoke.py`` from the root of the repo, on one card.
 ``--runtime-only cuda|cpu`` runs phase 5 alone, with the engines on the
 card or on its host's CPU (the same drive, no kernel), to tell the host's
-share of the runtime's time from the card's.
+share of the runtime's time from the card's.  ``--failover-only`` runs
+phases 6 and 7 alone.
 """
 
 from __future__ import annotations
@@ -93,6 +115,35 @@ RT_FAILURE_TIMEOUT_S = 300.0
 # phase, as the reference's pipelined e2e test sets it: the phase holds
 # every request to an answer with status 0.
 RT_BACKLOG_LIMIT = 0
+# the deactivator (PC.PAUSE_IDLE_S, 60 s) pauses a group idle that long:
+# its state leaves the slab and the app (CounterApp.restore(name, b""))
+# for the pause table.  On a slow host a group answered early in the
+# load is idle for a minute before the followers have executed the last
+# requests, and its count then leaves the tally the phase waits on and
+# checks.  Off for the phase, as in phase 6: the phase reads every
+# group's count, digest and exec_cursor off the app and the slab
+RT_PAUSE_IDLE_S = 0.0
+# phase 6: config 2 loses its coordinator.  Failure detection runs at
+# the defaults.  The deactivator is off: a group idle for PAUSE_IDLE_S
+# leaves the slab (its state then lives in the pause table, held by
+# tests/test_torch_failover.py and phase 2's row checks), and the phase
+# reads every group's state off the slab.  These tick-driven settings
+# decide what the replay of the phase's capture does, and the manifest
+# does not hold them, so phase 7 replays under the same values
+FO_REQUESTS, FO_DEPTH, FO_TIMEOUT_S = 2000, 64, 120.0
+FO_KNOBS = {"PING_INTERVAL_S": 0.5, "FAILURE_TIMEOUT_S": 3.0,
+            "PAUSE_IDLE_S": 0.0}
+FO_VICTIM, FO_SUCCESSOR = 0, 1
+FO_BLACKBOX_MB = 256  # every node's ring holds the whole phase
+# phase 2: one backend.prepare of about node 0's share of config 2's
+# groups, which the backend splits into 4096-lane chunks
+FO_PREPARE_ROWS = 33_334
+PAUSED_ROWS = 64  # rows phase 2 snapshots and restores, as a pause does
+# phase 7: the committed captures the JAX package wrote, with the failure
+# detection each was recorded under (the defaults where none is given)
+REPLAY_REFS = (("tests/data/reference.gpbb", {}),
+               ("tests/data/failover_ref.gpbb",
+                {"PING_INTERVAL_S": 0.15, "FAILURE_TIMEOUT_S": 1.0}))
 PARITY_BS = (1, 8, 64, 512, 4096, 4099, 1 << 18)
 # the runtime's waves: ColumnarBackend pads n live lanes to the least
 # bucket of this ladder that holds them, on phase 5's 2^17-row slab
@@ -459,6 +510,151 @@ def phase_cpu_parity():
     torch.cuda.empty_cache()
 
 
+def phase1_host_state(G, W, rng):
+    """A numpy state with inactive rows, advanced cursors, promised
+    ballots and an accepted window whose slots sit in their own columns
+    (``slot % W``), some stale, some empty: what prepare gathers and
+    install_coordinator carries over."""
+    from gigapaxos_tpu_torch.ops.types import (NO_BALLOT, NO_SLOT,
+                                               make_state, state_to_numpy)
+    host = state_to_numpy(make_state(G, W, "cpu"))
+    host["active"][:] = rng.random(G) < 0.9
+    host["members"][:] = 3
+    cur = rng.integers(0, 1000, G).astype(np.int32)
+    host["exec_cursor"][:] = cur
+    host["bal"][:] = (rng.integers(0, 8, G) << 12) | rng.integers(0, 3, G)
+    base = cur[:, None].astype(np.int64) - 4  # four stale columns
+    slot = base + (np.arange(W)[None, :] - base) % W
+    empty = rng.random((G, W)) < 0.3
+    acc = host["acc"]
+    acc[..., 0] = np.where(empty, NO_SLOT, slot)
+    acc[..., 1] = np.where(empty, NO_BALLOT, host["bal"][:, None]
+                           - (rng.random((G, W)) < 0.5) * 4096)
+    acc[..., 2] = rng.integers(-(1 << 31), 1 << 31, (G, W))
+    acc[..., 3] = rng.integers(-(1 << 31), 1 << 31, (G, W))
+    return host
+
+
+def _raise_ballots(bal, rng):
+    """New ballots for an election: most a round above the promise, a
+    few at or below it (refused)."""
+    return (bal + (rng.integers(-1, 3, len(bal)) << 12)).astype(np.int32) \
+        | 1
+
+
+def phase_phase1_parity(device="cuda"):
+    """prepare and install_coordinator (torch-op bodies; the JAX package
+    computes them with XLA, outside Pallas) on the card against the same
+    calls on the CPU, where ``tests/test_torch_kernels.py`` holds them
+    against the JAX package: on phase 5's 2^17-row slab at each bucket of
+    the ladder, padded as the backend pads, then one
+    ``ColumnarBackend.prepare`` of ``FO_PREPARE_ROWS`` rows (chunked)
+    and the install of its acked rows, and last the pause path's
+    ``snapshot_rows``/``restore_row`` on some of those rows.  Every plane
+    and every live-lane output must be bit-identical.  Returns the wall
+    seconds of the chunked prepare and install on each side.
+    (``device="cpu"`` rehearses the comparison off the card.)"""
+    from gigapaxos_tpu_torch.ops import kernels
+    from gigapaxos_tpu_torch.ops.types import (NO_BALLOT, NO_SLOT,
+                                               state_from_numpy,
+                                               state_to_numpy)
+    from gigapaxos_tpu_torch.paxos.backend import ColumnarBackend, _bucket
+    G, W = RT_CAPACITY, RT_WINDOW
+    devs = (device, "cpu")  # the card's side first, the plain side second
+    rng = np.random.default_rng(5)
+    host = phase1_host_state(G, W, rng)
+    sts = [state_from_numpy(host, d) for d in devs]
+
+    def padded(n, b, *cols):
+        out = []
+        for col, fill in cols:
+            a = np.full((b,) + col.shape[1:], fill, col.dtype)
+            a[:n] = col
+            out.append(a)
+        return out
+
+    def run(name, *arrays):
+        return [getattr(kernels, name)(
+            st, *(torch.from_numpy(np.ascontiguousarray(a)).to(d)
+                  for a in arrays))[1] for st, d in zip(sts, devs)]
+
+    def same_planes(a, b, what):
+        _same(state_to_numpy(a), state_to_numpy(b), f"state after {what}")
+
+    for B in RT_BUCKETS:
+        n = int(rng.integers(B // 8 + 1, B + 1))
+        rows = rng.choice(G, n, replace=False).astype(np.int32)
+        bals = _raise_ballots(host["bal"][rows], rng)
+        outs = run("prepare", *padded(n, B, (rows, 0), (bals, NO_BALLOT)),
+                   np.arange(B) < n)
+        live = [tuple(x.cpu().numpy()[:n] for x in o) for o in outs]
+        _same(live[0], live[1], f"prepare, {n} of B={B}")
+        same_planes(*sts, f"prepare, {n} of B={B}")
+        acked, _cb, cursor, wslot, _wb, wlo, whi = live[1]
+        sel = np.flatnonzero(acked)
+        k = len(sel)
+        b = _bucket(k)
+        carry = np.where(wslot[sel] >= cursor[sel, None], wslot[sel],
+                         NO_SLOT).astype(np.int32)
+        run("install_coordinator",
+            *padded(k, b, (rows[sel], 0), (bals[sel], NO_BALLOT),
+                    ((cursor[sel] + W // 2).astype(np.int32), 0),
+                    (carry, NO_SLOT), (wlo[sel], 0), (whi[sel], 0)),
+            np.arange(b) < k)
+        same_planes(*sts, f"install_coordinator, {k} of B={b}")
+    del sts
+
+    # the takeover's shape: one prepare of node 0's share, chunked
+    bks = []
+    for d in devs:
+        bk = ColumnarBackend(G, W, device=d)
+        bk.state = state_from_numpy(host, d)
+        bks.append(bk)
+    rows = rng.choice(G, FO_PREPARE_ROWS, replace=False).astype(np.int32)
+    bals = _raise_ballots(host["bal"][rows], rng)
+    secs = {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    res = [timed(f"prepare_{side}", lambda bk=bk: bk.prepare(rows, bals))
+           for side, bk in zip(("card", "cpu"), bks)]
+    _same(tuple(res[0]), tuple(res[1]),
+          f"ColumnarBackend.prepare of {FO_PREPARE_ROWS} rows")
+    p = res[1]
+    sel = np.flatnonzero(p.acked)
+    carry = (p.win_req_lo[sel].view(np.uint32).astype(np.uint64)
+             | (p.win_req_hi[sel].view(np.uint32).astype(np.uint64) << 32))
+    for side, bk in zip(("card", "cpu"), bks):
+        timed(f"install_{side}", lambda bk=bk: bk.install_coordinator(
+            rows[sel], bals[sel], p.exec_cursor[sel] + 1, p.win_slot[sel],
+            carry))
+    same_planes(bks[0].state, bks[1].state,
+                f"installing {len(sel)} of {FO_PREPARE_ROWS} rows")
+    # pause and unpause: rows out of the slab (snapshot_rows) and back
+    # into free rows (restore_row), as the deactivator moves them
+    moved = rows[sel][:PAUSED_ROWS]
+    snaps = [bk.snapshot_rows(moved) for bk in bks]
+    for i, (a, b) in enumerate(zip(*snaps)):
+        _same(a, b, f"snapshot_rows, row {moved[i]}")
+    free = rng.choice(np.setdiff1d(np.arange(G), rows), len(moved),
+                      replace=False)
+    for bk, sn in zip(bks, snaps):
+        for r, snap in zip(free.tolist(), sn):
+            bk.restore_row(r, snap)
+    same_planes(bks[0].state, bks[1].state,
+                f"restoring {len(moved)} snapshots into free rows")
+    del bks
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return {"rows": FO_PREPARE_ROWS, "acked": len(sel), **secs}
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 
@@ -615,12 +811,21 @@ def phase_spi():
 # -- phase 5 -----------------------------------------------------------------
 
 
-def _wait(cond, timeout_s: float, what: str) -> None:
+def _wait(cond, timeout_s: float, what: str, detail=None) -> None:
+    """Poll ``cond`` until it holds; on timeout raise, with what
+    ``detail()`` reports of the state at that moment."""
     deadline = time.monotonic() + timeout_s
     while not cond():
         if time.monotonic() > deadline:
-            raise AssertionError(f"runtime: timed out waiting for {what}")
+            more = f" ({detail()})" if detail is not None else ""
+            raise AssertionError(f"runtime: timed out waiting for {what}"
+                                 f"{more}")
         time.sleep(0.05)
+
+
+def _executed(nodes):
+    """Each node's executed requests, summed over its app's groups."""
+    return [sum(n.app.count.values()) for n in nodes]
 
 
 def _runtime_threads():
@@ -655,6 +860,7 @@ def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
     Config.set(PC.PIPELINE_WORKER, True)
     Config.set(PC.FUSE_WAVES, "auto")
     Config.set(PC.INTAKE_BACKLOG_LIMIT, RT_BACKLOG_LIMIT)
+    Config.set(PC.PAUSE_IDLE_S, RT_PAUSE_IDLE_S)
     logdir = tempfile.mkdtemp(prefix="gp_chip_smoke_")
     emu = None
     try:
@@ -676,9 +882,9 @@ def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
             raise AssertionError(f"runtime: {res['ok']} of {n_requests} "
                                  f"answered, {res['errors']} errors: "
                                  f"{json.dumps(res)}")
-        _wait(lambda: all(sum(n.app.count.values()) == n_requests
-                          for n in nodes), RT_TIMEOUT_S,
-              "every replica to execute every request")
+        _wait(lambda: all(c == n_requests for c in _executed(nodes)),
+              RT_TIMEOUT_S, "every replica to execute every request",
+              lambda: f"executed {_executed(nodes)} of {n_requests}")
         launches = accept.launches
         totals = {k: v for k, v in DelayProfiler.totals().items()
                   if k.startswith(("w.", "eng.submit", "eng.collect"))}
@@ -726,6 +932,342 @@ def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
             "groups_with_traffic": len(counts[0])}
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+
+def _node_threads(i):
+    """Live threads of node ``i``'s loop, worker and pipeline stages."""
+    import threading
+    names = (f"gp-loop-{i}", f"gp-work-{i}", f"gp-node{i}-")
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(names) and t.is_alive()]
+
+
+def _count_rows(backend, tally):
+    """Count the rows each of ``backend``'s phase-1 calls takes."""
+    for name in ("prepare", "install_coordinator"):
+        fn = getattr(backend, name)
+
+        def counted(rows, *args, _fn=fn, _name=name):
+            tally[_name] += len(rows)
+            return _fn(rows, *args)
+        setattr(backend, name, counted)
+
+
+def _quiesce(nodes, timeout_s):
+    """Wait until the nodes' executed counters hold still over a few
+    polls (no state-changing traffic left in flight)."""
+    last, stable = None, 0
+    deadline = time.monotonic() + timeout_s
+    while stable < 3:
+        if time.monotonic() > deadline:
+            raise AssertionError("failover: the survivors never quiesced")
+        cur = tuple(n.n_executed for n in nodes)
+        stable = stable + 1 if cur == last else 0
+        last = cur
+        time.sleep(0.3)
+
+
+def _check_agreement(nodes, what):
+    """Equal counts and digests, and each node's ``exec_cursor`` equal to
+    its count on every group that took traffic."""
+    from gigapaxos_tpu_torch.ops.types import state_to_numpy
+    counts = [dict(n.app.count) for n in nodes]
+    digests = [dict(n.app.digest) for n in nodes]
+    if any(c != counts[0] for c in counts[1:]):
+        raise AssertionError(f"{what}: replicas' counts differ")
+    if any(d != digests[0] for d in digests[1:]):
+        raise AssertionError(f"{what}: replicas' digests differ")
+    for n in nodes:
+        cur = state_to_numpy(n.backend.state)["exec_cursor"]
+        for name, c in counts[0].items():
+            row = n.table.by_name(name).row
+            if int(cur[row]) != c:
+                raise AssertionError(
+                    f"{what}: node {n.id} group {name}: exec_cursor "
+                    f"{int(cur[row])} != count {c}")
+    return len(counts[0])
+
+
+def phase_failover(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
+                   n_requests=FO_REQUESTS, depth=FO_DEPTH, out_dir=None):
+    """Config 2 loses its coordinator: 3 ``PaxosNode``s with the flight
+    recorder armed, ``n_requests`` at ``depth``, node 0 killed, node 1
+    takes over every group node 0 led (prepare and install on the card),
+    then ``n_requests`` more through the survivors.  Writes node 1's
+    capture into ``out_dir`` and returns the phase's numbers."""
+    import shutil
+    import tempfile
+    from gigapaxos_tpu_torch.ops.accept_cuda import accept
+    from gigapaxos_tpu_torch.ops.types import unpack_ballot
+    from gigapaxos_tpu_torch.paxos.interfaces import CounterApp
+    from gigapaxos_tpu_torch.paxos.packets import group_key
+    from gigapaxos_tpu_torch.paxos.paxosconfig import PC
+    from gigapaxos_tpu_torch.testing.harness import PaxosEmulation
+    from gigapaxos_tpu_torch.utils.config import Config
+    from gigapaxos_tpu_torch.utils.profiler import DelayProfiler
+    Config.set(PC.COLUMNAR_DEVICE, device)
+    Config.set(PC.PIPELINE_WORKER, True)
+    Config.set(PC.FUSE_WAVES, "auto")
+    Config.set(PC.INTAKE_BACKLOG_LIMIT, RT_BACKLOG_LIMIT)
+    Config.set(PC.BLACKBOX_MB, FO_BLACKBOX_MB)
+    Config.set(PC.BLACKBOX_S, 0.0)  # no age eviction: the whole history
+    for key, val in FO_KNOBS.items():
+        Config.set(getattr(PC, key), val)
+    logdir = tempfile.mkdtemp(prefix="gp_chip_failover_")
+    emu = None
+    out = {}
+    try:
+        emu = PaxosEmulation(logdir, n_nodes=RT_NODES, n_groups=0,
+                             app_cls=CounterApp, capacity=capacity,
+                             window=RT_WINDOW, sync_wal=False)
+        nodes = [emu.nodes[i] for i in range(RT_NODES)]
+        if any(n.blackbox is None for n in nodes):
+            raise AssertionError("failover: a node's recorder is not armed")
+        t0 = time.perf_counter()
+        emu.create_groups(n_groups)
+        out["create_s"] = time.perf_counter() - t0
+        led = [g for g in emu.groups if group_key(g) % RT_NODES == FO_VICTIM]
+        succ = nodes[FO_SUCCESSOR]
+        survivors = [n for n in nodes if n.id != FO_VICTIM]
+        rows = {"prepare": 0, "install_coordinator": 0}
+        for n in survivors:
+            _count_rows(n.backend, rows)
+        DelayProfiler.clear()
+        accept.launches = 0
+        waves0 = [n.blackbox.n_records for n in nodes]
+        pre = emu.run_load_fast(n_requests, concurrency=depth,
+                                timeout=FO_TIMEOUT_S)
+        if pre["ok"] != n_requests or pre["errors"]:
+            raise AssertionError(f"failover: before the kill {pre['ok']} of "
+                                 f"{n_requests} answered: {json.dumps(pre)}")
+        _wait(lambda: all(c == n_requests for c in _executed(nodes)),
+              FO_TIMEOUT_S, "every replica to execute the first load",
+              lambda: f"executed {_executed(nodes)} of {n_requests}")
+        if sum(n.n_installs for n in nodes):
+            raise AssertionError("failover: a coordinator was installed "
+                                 "before the kill (spurious election)")
+        out["pre"] = pre
+        out["pre_launches"] = accept.launches
+        pre_totals = DelayProfiler.totals()
+        out["pre_ring"] = [n.blackbox.n_records - w0
+                           for n, w0 in zip(nodes, waves0)]
+        time.sleep(FO_KNOBS["PING_INTERVAL_S"])
+        t_kill = time.monotonic()
+        emu.kill(FO_VICTIM)
+        # the dead node's threads must end before its state is let go (a
+        # thread inside a torch call at exit aborts the process)
+        _wait(lambda: not _node_threads(FO_VICTIM), FO_TIMEOUT_S,
+              "the killed node's threads to end")
+        detect_s = None
+        deadline = t_kill + FO_TIMEOUT_S
+        while succ.n_installs < len(led) or succ.open_elections:
+            if detect_s is None and (succ.open_elections or succ.n_installs):
+                detect_s = time.monotonic() - t_kill
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"failover: node {FO_SUCCESSOR} installed "
+                    f"{succ.n_installs} of {len(led)} groups within "
+                    f"{FO_TIMEOUT_S} s ({succ.open_elections} elections "
+                    "open)")
+            time.sleep(0.01)
+        out["takeover_s"] = time.monotonic() - t_kill
+        out["detect_s"] = out["takeover_s"] if detect_s is None else detect_s
+        out["led"] = len(led)
+        out["groups"] = n_groups
+        out["capacity"] = capacity
+        out["installs"] = succ.n_installs
+        launches_kill = accept.launches
+        post = emu.run_load_fast(n_requests, concurrency=depth,
+                                 timeout=FO_TIMEOUT_S, client_id=1 << 21)
+        if post["ok"] != n_requests or post["errors"]:
+            raise AssertionError(f"failover: after the kill {post['ok']} of "
+                                 f"{n_requests} answered: {json.dumps(post)}")
+        out["post"] = post
+        _wait(lambda: all(c == 2 * n_requests
+                          for c in _executed(survivors)),
+              FO_TIMEOUT_S, "every survivor to execute both loads",
+              lambda: f"executed {_executed(survivors)} of "
+                      f"{2 * n_requests}")
+        _quiesce(survivors, FO_TIMEOUT_S)
+        out["post_launches"] = accept.launches - launches_kill
+        out["launches"] = accept.launches
+        if device == "cuda" and out["post_launches"] < 1:
+            raise AssertionError("failover: the accept kernel was not "
+                                 "launched after the kill")
+        totals = DelayProfiler.totals()
+        out["totals"] = {k: v for k, v in totals.items()
+                         if k.startswith(("w.prepare", "w.install"))}
+        out["process"] = {"pre": pre_totals.get("w.process"),
+                          "all": totals.get("w.process")}
+        out["rows"] = rows
+        out["elections_after"] = succ.n_installs - len(led)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            succ._bb_digest(0)
+        # the recorder folds the slab's host mirrors twice a wave
+        out["digest_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        t0 = time.perf_counter()
+        path = succ.blackbox.dump("failover")
+        out["dump_s"] = time.perf_counter() - t0
+        out["ring"] = succ.blackbox.snapshot()
+        if out_dir is not None:
+            path = shutil.copy(path, out_dir)
+        out["capture"] = path
+        emu.stop()
+        emu = None
+        _wait(lambda: not _runtime_threads(), FO_TIMEOUT_S,
+              "the nodes' threads to end after stop")
+        out["groups_with_traffic"] = _check_agreement(survivors, "failover")
+        for name in led[:: max(1, len(led) // 64)]:
+            row = succ.table.by_name(name).row
+            for bal in (int(succ._bal[row]),
+                        int(succ.backend.inspect_rows([row])["bal"][0])):
+                if unpack_ballot(bal)[1] != FO_SUCCESSOR:
+                    raise AssertionError(
+                        f"failover: group {name} ballot {bal} is not led "
+                        f"by node {FO_SUCCESSOR}")
+        if "jax" in sys.modules:
+            raise AssertionError("failover: jax was imported")
+    finally:
+        if emu is not None:
+            emu.stop()
+        Config.clear()
+        shutil.rmtree(logdir, ignore_errors=True)
+    return out
+
+
+# -- phase 7 -----------------------------------------------------------------
+
+
+def replay_one(path, device="cuda", knobs=None):
+    """Replay one capture on ``device``: verdict ``MATCH``, not partial,
+    no group mismatch, and (on the card) the accept kernel launched.
+    ``knobs`` are the tick-driven settings (``PC`` names) the capture was
+    recorded under; the defaults for the rest."""
+    from gigapaxos_tpu_torch.blackbox.replay import replay_capture
+    from gigapaxos_tpu_torch.ops.accept_cuda import accept
+    from gigapaxos_tpu_torch.paxos.paxosconfig import PC
+    from gigapaxos_tpu_torch.utils.config import Config
+    Config.set(PC.COLUMNAR_DEVICE, device)
+    for key, val in (knobs or {}).items():
+        Config.set(getattr(PC, key), val)
+    try:
+        accept.launches = 0
+        t0 = time.perf_counter()
+        rep = replay_capture(path)
+        rep["wall_s"] = time.perf_counter() - t0
+        rep["launches"] = accept.launches
+    finally:
+        Config.clear()
+    if rep["verdict"] != "MATCH" or rep["partial"] or \
+            rep["group_mismatches"] or rep["row_mismatches"]:
+        from gigapaxos_tpu_torch.blackbox.replay import render_report
+        raise AssertionError(f"replay of {path}:\n{render_report(rep)}")
+    if device == "cuda" and rep["launches"] < 1:
+        raise AssertionError(f"replay of {path}: the accept kernel was not "
+                             "launched")
+    if "jax" in sys.modules:
+        raise AssertionError("replay: jax was imported")
+    return rep
+
+
+def phase_replay(capture, n_groups, device="cuda"):
+    """The committed JAX-written captures, then phase 6's: each must
+    replay ``MATCH`` through the port's node; phase 6's must hold every
+    group, the whole history (nothing evicted) and the takeover's
+    prepare and install waves."""
+    import os
+    from gigapaxos_tpu_torch.blackbox.capture import read_capture
+    here = os.path.dirname(os.path.abspath(__file__))
+    reps = [replay_one(os.path.join(here, p), device, knobs)
+            for p, knobs in REPLAY_REFS]
+    records, manifest = read_capture(capture)
+    if manifest["n_evicted"] != 0:
+        raise AssertionError(f"replay: phase 6's ring evicted "
+                             f"{manifest['n_evicted']} records")
+    rep = replay_one(capture, device, FO_KNOBS)
+    if rep["groups"] != n_groups:
+        raise AssertionError(f"replay: {rep['groups']} groups in phase 6's "
+                             f"capture, not {n_groups}")
+    # the takeover's waves: each F record holding a prepare or its reply
+    # must have its W record (MATCH held every W record to the replay's)
+    from gigapaxos_tpu_torch.paxos.packets import PacketType
+    phase1 = (PacketType.PREPARE_BATCH, PacketType.PREPARE_REPLY_BATCH)
+    waves = {r["wave"] for r in records if r["t"] == "F"
+             and any(f and f[0] in phase1 for f in r["frames"])}
+    verified = {r["wave"] for r in records if r["t"] == "W"}
+    if not waves or not waves <= verified:
+        raise AssertionError(f"replay: phase 6's capture holds {len(waves)}"
+                             f" prepare waves, {len(waves - verified)} of "
+                             "them without a wave record")
+    rep["prepare_waves"] = len(waves)
+    return reps + [rep]
+
+
+def phase_failover_and_replay(device="cuda", n_groups=RT_GROUPS,
+                              capacity=RT_CAPACITY, n_requests=FO_REQUESTS,
+                              depth=FO_DEPTH):
+    """Phases 6 and 7, with phase 6's capture in a directory removed
+    after the replays."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="gp_chip_capture_")
+    try:
+        fo = phase_failover(device, n_groups, capacity, n_requests, depth,
+                            out_dir=tmp)
+        reps = phase_replay(fo["capture"], n_groups, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return fo, reps
+
+
+def _failover_lines(fo, line):
+    for when in ("pre", "post"):
+        r = fo[when]
+        info(f"failover {when} the kill: {r['ok']} of {r['requests']} "
+             f"answered at depth {FO_DEPTH} in {r['wall_s']} s: "
+             f"{r['throughput_rps']} decided requests/s, client p50 "
+             f"{r['lat_p50_ms']} ms, p99 {r['lat_p99_ms']} ms ({line})")
+    info(f"failover: {fo['led']} of {fo['groups']} groups led by node "
+         f"{FO_VICTIM}; kill to first prepare {fo['detect_s']:.3f} s, to "
+         f"the last of {fo['installs']} installs on node {FO_SUCCESSOR} "
+         f"{fo['takeover_s']:.3f} s (ping "
+         f"{FO_KNOBS['PING_INTERVAL_S']} s, failure timeout "
+         f"{FO_KNOBS['FAILURE_TIMEOUT_S']} s); groups created in "
+         f"{fo['create_s']:.3f} s ({line})")
+    info(f"failover: rows through the survivors' backend.prepare "
+         f"{fo['rows']['prepare']}, install_coordinator "
+         f"{fo['rows']['install_coordinator']}; accept "
+         f"launches {fo['pre_launches']} before the kill, "
+         f"{fo['post_launches']} after the takeover; survivors agree on "
+         f"{fo['groups_with_traffic']} groups with traffic")
+    for tag in sorted(fo["totals"]):
+        wall, calls, items = fo["totals"][tag][:3]
+        info(f"failover profiler {tag}: {wall:.4f} s over {calls} calls, "
+             f"{items} items")
+    pre, tot = fo["process"]["pre"], fo["process"]["all"]
+    if pre:
+        info(f"failover recorder armed: w.process {pre[0]:.4f} s over "
+             f"{pre[1]} waves before the kill, {tot[0]:.4f} s over {tot[1]}"
+             f" in the whole load; node {FO_SUCCESSOR}'s ring "
+             f"{fo['ring']['records']} records, {fo['ring']['bytes']} B, "
+             f"{fo['ring']['evicted']} evicted; dump {fo['dump_s']:.3f} s; "
+             f"one lane digest of the {fo['capacity']}-row slab "
+             f"{fo['digest_ms']:.3f} ms (two a wave)")
+
+
+def _replay_lines(reps, line):
+    for r in reps:
+        info(f"replay {r['file']}: {r['verdict']}, {r['waves_replayed']} "
+             f"waves replayed ({r['waves_captured']} captured), "
+             f"{r['frames']} frames, {r['groups']} groups, "
+             f"{r.get('prepare_waves', 0)} prepare waves; create "
+             f"{r['create_s']:.3f} s, replay {r['replay_s']:.3f} s, wall "
+             f"{r['wall_s']:.3f} s; accept launches {r['launches']} "
+             f"({line})")
+
+
 def _runtime_lines(rt, line):
     r = rt["res"]
     info(f"runtime: {RT_NODES} PaxosNodes on loopback, {rt['groups']} groups "
@@ -753,6 +1295,9 @@ def main(argv=None) -> int:
                     help="run only phase 5, with the engines on this "
                     "device (cpu: the same drive on the card's host, no "
                     "kernel), print its lines and exit")
+    ap.add_argument("--failover-only", action="store_true",
+                    help="run only phases 6 and 7 (failover, replay), "
+                    "print their lines and exit")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         return fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -768,6 +1313,13 @@ def main(argv=None) -> int:
             _build.build_all()
             _runtime_lines(phase_runtime(device=args.runtime_only), line)
             info(f"runtime-only: engines on {args.runtime_only}")
+            return 0
+        if args.failover_only:
+            _build.build_all()
+            fo, reps = phase_failover_and_replay()
+            _failover_lines(fo, line)
+            _replay_lines(reps, line)
+            info("failover-only: phases 6 and 7")
             return 0
         t0 = time.perf_counter()
         secs = _build.build_all()
@@ -789,6 +1341,17 @@ def main(argv=None) -> int:
         phase_cpu_parity()
         info("parity: storm steps and SPI waves on the card bit-identical "
              "to the same calls on the CPU (small size)")
+        p1 = phase_phase1_parity()
+        info(f"parity: prepare and install_coordinator on the card "
+             f"bit-identical to the CPU on the runtime's slab (G="
+             f"{RT_CAPACITY}, W={RT_WINDOW}) at every bucket "
+             f"{list(RT_BUCKETS)}, and one ColumnarBackend.prepare of "
+             f"{p1['rows']} rows ({p1['acked']} acked and installed, "
+             f"{PAUSED_ROWS} snapshotted and restored): "
+             f"prepare {p1['prepare_card']:.4f} s on the card, "
+             f"{p1['prepare_cpu']:.4f} s on the CPU; install "
+             f"{p1['install_card']:.4f} s, {p1['install_cpu']:.4f} s "
+             f"({line})")
 
         storm = phase_storm()
         info(f"storm: {storm['decided']} decisions in {STORM_STEPS} steps "
@@ -801,6 +1364,9 @@ def main(argv=None) -> int:
              f"{spi['launches']}; slab {spi['slab_bytes']} B a replica")
         rt = phase_runtime()
         _runtime_lines(rt, line)
+        fo, reps = phase_failover_and_replay()
+        _failover_lines(fo, line)
+        _replay_lines(reps, line)
     except Exception as e:  # every phase's failure ends the run non-zero
         import traceback
         traceback.print_exc()
@@ -812,10 +1378,13 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "gigapaxos_tpu_torch/ops/csrc/accept.cu",
         "replaces": "gigapaxos_tpu/ops/pallas_accept.py:165",
-        "launches": storm["launches"] + spi["launches"] + rt["launches"],
+        "launches": storm["launches"] + spi["launches"] + rt["launches"]
+        + fo["launches"] + sum(r["launches"] for r in reps),
         "launches_by_path": {"storm": storm["launches"],
                              "spi": spi["launches"],
-                             "runtime": rt["launches"]},
+                             "runtime": rt["launches"],
+                             "failover": fo["launches"],
+                             "replay": [r["launches"] for r in reps]},
         "parity": "bit-exact",
         "max_abs_err": max_err,
         "lanes": max(PARITY_BS),

@@ -28,10 +28,9 @@ from the reference only where the port differs: the columnar engine is
 the port's ``ColumnarBackend`` on ``PC.COLUMNAR_DEVICE`` (``"cuda"``
 unless the caller asks for the CPU), and each option whose module is not
 ported yet — the native engine, engine lanes (``ENGINE_SHARDS > 1``), a
-device mesh (``ENGINE_MESH > 1``), the flight recorder
-(``BLACKBOX_MB > 0``), the lock witness (``LOCK_WITNESS``) and the stats
-listener (``STATS_PORT >= 0``) — raises ``NotImplementedError`` at
-construction instead of running without it.
+device mesh (``ENGINE_MESH > 1``), the lock witness (``LOCK_WITNESS``)
+and the stats listener (``STATS_PORT >= 0``) — raises
+``NotImplementedError`` at construction instead of running without it.
 """
 
 from __future__ import annotations
@@ -304,8 +303,6 @@ def _refuse_unported(bk: str) -> None:
          "ROADMAP module 9)"),
         (mesh not in ("auto", "off") and int(mesh) > 1,
          "ENGINE_MESH > 1 (a device mesh; ROADMAP module 16)"),
-        (int(Config.get(PC.BLACKBOX_MB)) > 0,
-         "BLACKBOX_MB > 0 (the flight recorder; ROADMAP module 7)"),
         (bool(Config.get(PC.LOCK_WITNESS)),
          "LOCK_WITNESS (the runtime lock witness; ROADMAP module 15)"),
         (int(Config.get(PC.STATS_PORT)) >= 0,
@@ -569,11 +566,20 @@ class PaxosNode:
         # The engine-shape knobs are stashed for the dump manifest —
         # offline replay must rebuild this exact engine.
         self._bb_knobs = {"backend": bk, "capacity": cap, "window": win}
-        # not ported: _refuse_unported raised on BLACKBOX_MB > 0, so
-        # every hook site reads the plane as off
         self.blackbox = None
+        bb_mb = int(Config.get(PC.BLACKBOX_MB))
+        if bb_mb > 0:
+            from gigapaxos_tpu_torch.blackbox.recorder import \
+                BlackboxRecorder
+            self.blackbox = BlackboxRecorder(
+                node_id, logdir, max_bytes=bb_mb << 20,
+                max_age_s=float(Config.get(PC.BLACKBOX_S)),
+                dump_on_slow=bool(Config.get(PC.BLACKBOX_ON_SLOW)),
+                manifest_fn=self._blackbox_manifest)
         self.transport.blackbox = self.blackbox
         self.logger.blackbox = self.blackbox
+        # the reference's retrace alarm (EngineLedger.add_trigger) has no
+        # counterpart: torch does not trace, so nothing re-traces
         self._loop_thread: Optional[threading.Thread] = None
         self._worker_thread: Optional[threading.Thread] = None
         self._loop = None
@@ -2879,6 +2885,12 @@ class PaxosNode:
         pay_parts: List[bytes] = []
         now = self._now()
         ex, exo = self._executed_recent, self._executed_old
+        # req_ids taken into this batch's lanes: a retransmit that lands
+        # in the same batch as its original passes the _proposed check
+        # (that entry is made after the engine call) and would take a
+        # second slot, whose execution then finds the payload gone with
+        # the first and wedges the group on every replica
+        taken: set = set()
         # ---- vectorized client batches (the hot path: one _ReqSoA per
         # wire read; per-lane Python is 3-4 dict ops) ----
         for sb in soas:
@@ -2926,7 +2938,7 @@ class PaxosNode:
                     self._route(int(snd[i]), pkt.Response(
                         self.id, int(sb.gkey[i]), rid, st_, rv))
                     continue
-                if rid in self._proposed:
+                if rid in self._proposed or rid in taken:
                     # in-flight duplicate: swallow the proposal, but
                     # keep what the retransmit carries — the payload (a
                     # carryover slot may hold only FLAG_MISSING) and
@@ -2939,6 +2951,7 @@ class PaxosNode:
                     continue
                 self._client_wait[rid] = (int(snd[i]), now,
                                           int(sb.gkey[i]))
+                taken.add(rid)
                 keep.append(i)
             if keep:
                 ka = np.asarray(keep, np.int64)
@@ -2993,7 +3006,7 @@ class PaxosNode:
                             force=bool(o.flags & FLAG_SAMPLED))
                     self._route(coord, prop)
                 continue
-            if o.req_id in self._proposed:
+            if o.req_id in self._proposed or o.req_id in taken:
                 # swallow the duplicate but keep its payload: a
                 # carryover slot may hold only a FLAG_MISSING
                 # placeholder that this retransmit can fill
@@ -3004,6 +3017,7 @@ class PaxosNode:
                     self.id, o.gkey, o.req_id, o.sender, o.flags,
                     o.payload))
                 continue
+            taken.add(o.req_id)
             lanes.append((meta.row, o.req_id, o.flags, o.payload, o.sender))
         for o in props:
             meta = self._lookup(o.gkey)
@@ -3061,7 +3075,7 @@ class PaxosNode:
                                 force=bool(o.flags & FLAG_SAMPLED))
                         self._route(coord, o)
                 continue
-            if o.req_id in self._proposed:
+            if o.req_id in self._proposed or o.req_id in taken:
                 # swallow the duplicate, keep its payload, and record
                 # the entry replica as waiter so the carried slot's
                 # execution answers it (a carryover-registered rid has
@@ -3073,6 +3087,7 @@ class PaxosNode:
             if meta.row in self._catchup_barrier:
                 self._park(meta.row, o)
                 continue
+            taken.add(o.req_id)
             lanes.append((meta.row, o.req_id, o.flags, o.payload, o.entry))
         if lanes:
             rows_parts.append(np.asarray([l[0] for l in lanes], np.int32))

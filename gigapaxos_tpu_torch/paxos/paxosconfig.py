@@ -180,8 +180,7 @@ class PC(ConfigKey):
     # invariant violation, ballot-churn spike, SIGTERM/fatal exception,
     # GET /blackbox/dump) and re-driven offline by the blackbox replay.
     # Ring byte budget in MB; 0 = off (every hook then costs one
-    # attribute check).  Not ported yet: > 0 raises at node
-    # construction (ROADMAP module 7).
+    # attribute check).
     BLACKBOX_MB = 0
     # age horizon for ring records in seconds (0 = bytes-only bounding)
     BLACKBOX_S = 30.0

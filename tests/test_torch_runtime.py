@@ -6,7 +6,9 @@ payload) order, the same ``CounterApp`` counts and digests and the same
 device cursors (``inspect_rows``), with fused waves on, with them off,
 and on the pipelined worker.  Also: a port node restarts from a logdir
 (its own, or one a JAX node wrote) and serves again, and every option
-whose module is not ported raises instead of running without it.  Exact
+whose module is not ported raises instead of running without it,
+``BLACKBOX_MB > 0`` arms the flight recorder, and a retransmit in the
+same intake batch as its original takes no second slot.  Exact
 equality throughout."""
 
 import os
@@ -245,6 +247,45 @@ def test_stop_ends_every_runtime_thread(tmp_path, pipeline):
     assert not {t.name for t in _runtime_threads() - before}
 
 
+def test_retransmit_in_one_batch_takes_one_slot(tmp_path):
+    """A request and its retransmit that reach the coordinator in one
+    read are proposed once: the group's replicas execute it once, their
+    host and device cursors agree, and the group goes on executing.
+    (The JAX package proposes both, into two slots; the second finds the
+    payload gone with the first and wedges the group on every replica:
+    ROADMAP §3.)"""
+    import socket
+    import struct
+    from gigapaxos_tpu_torch.ops.types import state_to_numpy
+    from gigapaxos_tpu_torch.paxos.packets import group_key
+    from gigapaxos_tpu_torch.testing.loadgen import _frame
+    Config.set(PC.COLUMNAR_DEVICE, "cpu")
+    emu = PaxosEmulation(str(tmp_path), n_nodes=3, n_groups=4,
+                         backend="columnar", app_cls=ti.CounterApp,
+                         capacity=64, window=W, failure_timeout_s=300.0)
+    try:
+        g = emu.groups[0]
+        gk = group_key(g)
+        nodes = [emu.nodes[i] for i in emu.members_of(g)]
+        cid = 77
+        with socket.create_connection(
+                emu.addr_map[emu.members_of(g)[gk % 3]]) as s:
+            s.sendall(struct.pack("<Ii", 4, cid))
+            first = _frame(cid, gk, (cid << 32) | 1, b"a")
+            s.sendall(first + first)  # one write: one intake batch
+            s.sendall(_frame(cid, gk, (cid << 32) | 2, b"b"))
+            deadline = time.time() + tscale(20)
+            while time.time() < deadline and not all(
+                    n.app.count.get(g) == 2 for n in nodes):
+                time.sleep(0.02)
+        for n in nodes:
+            row = n.table.by_name(g).row
+            dev = int(state_to_numpy(n.backend.state)["exec_cursor"][row])
+            assert (n.app.count.get(g), int(n._cur[row]), dev) == (2, 2, 2)
+    finally:
+        emu.stop()
+
+
 # -- guards --------------------------------------------------------------
 
 
@@ -253,7 +294,6 @@ def test_stop_ends_every_runtime_thread(tmp_path, pipeline):
     (PC.ENGINE_SHARDS, 2, "columnar"),
     (PC.ENGINE_MESH, 2, "columnar"),
     (PC.ENGINE_MESH, "2", "columnar"),
-    (PC.BLACKBOX_MB, 1, "columnar"),
     (PC.STATS_PORT, 0, "columnar"),
     (PC.LOCK_WITNESS, True, "columnar"),
 ])
@@ -266,6 +306,24 @@ def test_unported_options_raise(tmp_path, knob, value, backend):
                   str(tmp_path / "n0"), backend=backend, capacity=64)
     # refused before the node touched its logdir
     assert not os.path.exists(tmp_path / "n0")
+
+
+def test_blackbox_mb_arms_the_recorder(tmp_path):
+    """``BLACKBOX_MB > 0`` arms the flight recorder on the node, its
+    transport and its WAL logger, with the configured byte budget."""
+    from gigapaxos_tpu_torch.blackbox.recorder import BlackboxRecorder
+    Config.set(PC.COLUMNAR_DEVICE, "cpu")
+    Config.set(PC.BLACKBOX_MB, 1)
+    node = PaxosNode(0, {0: ("127.0.0.1", 1)}, ti.CounterApp(),
+                     str(tmp_path / "n0"), capacity=64)
+    try:
+        assert isinstance(node.blackbox, BlackboxRecorder)
+        assert node.transport.blackbox is node.blackbox
+        assert node.logger.blackbox is node.blackbox
+        assert node.blackbox.snapshot()["budget_bytes"] == 1 << 20
+    finally:
+        node.blackbox.close()
+        node.logger.close()
 
 
 def test_one_device_mesh_settings_run(tmp_path):
