@@ -13,9 +13,10 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    inactive rows, advanced cursors and promised ballots, at B = 1, 8, 64,
    512, 4096, 4099 and 2^18 lanes over several seeds, at B = 2^21 (more
    lanes than the co-resident grid holds), on 4096 lanes crowded onto 64
-   rows (the whole-batch ballot max decides), on phase 5's G=2^17 slab at
-   each bucket of the runtime's ladder {8, 64, 512, 4096} with live lanes
-   padded as ``ColumnarBackend`` pads a wave, and on the storm's lanes —
+   rows (the whole-batch ballot max decides), on phase 5's G=2^17 slab
+   and on phase 8's G=2^15 lane slab at each bucket of the runtime's
+   ladder {8, 64, 512, 4096} with live lanes padded as
+   ``ColumnarBackend`` pads a wave, and on the storm's lanes —
    ``bal``, ``acc`` and all four output rows must be bit-identical;
    times per call (the storm's lanes also with L2 cold) and the byte
    bound; then storm steps and SPI waves at a small size on the card against
@@ -55,14 +56,25 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    survivors — every request answered with status 0, the survivors'
    counts, digests and ``exec_cursor`` in agreement, the sampled takeover
    rows led by node 1, the accept kernel launched after the kill;
-7. replay on the card: ``tests/data/reference.gpbb`` and
-   ``tests/data/failover_ref.gpbb`` (both written by the JAX package,
-   the second a takeover) and node 1's capture from phase 6 (100,000
+7. replay on the card: ``tests/data/reference.gpbb``,
+   ``tests/data/failover_ref.gpbb`` and ``tests/data/lanes_ref.gpbb``
+   (all written by the JAX package, the second a takeover, the third
+   four engine lanes) and node 1's capture from phase 6 (100,000
    groups, nothing evicted, the takeover's prepare waves verified) each
    replay ``MATCH`` through the port's node, with the accept kernel
    launched in each;
-8. the kernels' launch counters, reset just before each of phases 3 to
-   7 and read just after, must show that those paths went through every
+8. config 2 at four engine lanes (``ENGINE_SHARDS=4``, ``bench.py``'s
+   ``min(4, cpus)``): phase 5's cluster, pins and load with every node's
+   2^17 rows in four 2^15-row slabs, each on a CUDA stream of its own,
+   and every node's stats listener on (``STATS_PORT=0``) — every request
+   answered with status 0, the replicas in agreement, four WAL segments
+   a node, every lane's slab submitting waves on its own non-default
+   stream; then each node's ``/engine``, ``/engine/kernels`` and
+   ``/metrics`` scraped live (four lanes, exact slab bytes equal to
+   phase 5's, a valid exposition) and their cluster merge (every node
+   up);
+9. the kernels' launch counters, reset just before each of phases 3 to
+   8 and read just after, must show that those paths went through every
    kernel.
 
 It prints one JSON line listing every kernel (route, source, the TPU
@@ -76,7 +88,8 @@ Run: ``python3 chip_smoke.py`` from the root of the repo, on one card.
 ``--runtime-only cuda|cpu`` runs phase 5 alone, with the engines on the
 card or on its host's CPU (the same drive, no kernel), to tell the host's
 share of the runtime's time from the card's.  ``--failover-only`` runs
-phases 6 and 7 alone.
+phases 6 and 7 alone; ``--lanes-only`` runs phases 5 and 8 alone, one
+lane against four.
 """
 
 from __future__ import annotations
@@ -84,10 +97,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -134,6 +149,11 @@ FO_REQUESTS, FO_DEPTH, FO_TIMEOUT_S = 2000, 64, 120.0
 FO_KNOBS = {"PING_INTERVAL_S": 0.5, "FAILURE_TIMEOUT_S": 3.0,
             "PAUSE_IDLE_S": 0.0}
 FO_VICTIM, FO_SUCCESSOR = 0, 1
+# phase 8: config 2 at four engine lanes (bench.py measures ENGINE_SHARDS
+# at min(4, cpus); README "Scaling out a node"): each node's 2^17 rows in
+# four 2^15-row slabs, with phase 5's load, pins and limits
+LANES = 4
+LANE_CAPACITY = RT_CAPACITY // LANES
 FO_BLACKBOX_MB = 256  # every node's ring holds the whole phase
 # phase 2: one backend.prepare of about node 0's share of config 2's
 # groups, which the backend splits into 4096-lane chunks
@@ -143,10 +163,12 @@ PAUSED_ROWS = 64  # rows phase 2 snapshots and restores, as a pause does
 # detection each was recorded under (the defaults where none is given)
 REPLAY_REFS = (("tests/data/reference.gpbb", {}),
                ("tests/data/failover_ref.gpbb",
-                {"PING_INTERVAL_S": 0.15, "FAILURE_TIMEOUT_S": 1.0}))
+                {"PING_INTERVAL_S": 0.15, "FAILURE_TIMEOUT_S": 1.0}),
+               ("tests/data/lanes_ref.gpbb", {}))
 PARITY_BS = (1, 8, 64, 512, 4096, 4099, 1 << 18)
 # the runtime's waves: ColumnarBackend pads n live lanes to the least
-# bucket of this ladder that holds them, on phase 5's 2^17-row slab
+# bucket of this ladder that holds them, on phase 5's 2^17-row slab and
+# phase 8's 2^15-row lane slabs
 RT_BUCKETS = (8, 64, 512, 4096)
 PARITY_SEEDS = (0, 1, 2)
 BIG_B = 1 << 21  # beyond the co-resident grid: grid-stride rounds
@@ -383,23 +405,25 @@ def phase_parity(name_line):
             max_err = max(max_err, check_accept(
                 base, lanes, f"contended, {B} lanes on {n_rows} rows")[0])
         del base
-    # the runtime's shapes: phase 5's slab and every bucket of the ladder,
-    # with a live share drawn anew per wave
-    for seed in PARITY_SEEDS:
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(seed)
-        base = parity_state(RT_CAPACITY, RT_WINDOW, gen)
-        for B in RT_BUCKETS:
-            n = int(torch.randint(B // 8 + 1, B + 1, (1,), generator=gen,
-                                  device="cuda"))
-            lanes = padded_lanes(base, n, B, gen)
-            err, out, st = check_accept(
-                base, lanes, f"runtime slab, seed {seed}, {n} of B={B}")
-            max_err = max(max_err, err)
-            if seed == PARITY_SEEDS[0]:
-                rows[f"rt_{B}"] = dict(time_accept(base, lanes, out, st,
-                                                   hbm), live=n)
-        del base
+    # the runtime's shapes: phase 5's slab and phase 8's lane slab at
+    # every bucket of the ladder, with a live share drawn anew per wave
+    for G, key in ((RT_CAPACITY, "rt"), (LANE_CAPACITY, "lane")):
+        for seed in PARITY_SEEDS:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            base = parity_state(G, RT_WINDOW, gen)
+            for B in RT_BUCKETS:
+                n = int(torch.randint(B // 8 + 1, B + 1, (1,),
+                                      generator=gen, device="cuda"))
+                lanes = padded_lanes(base, n, B, gen)
+                err, out, st = check_accept(
+                    base, lanes, f"{key} slab (G={G}), seed {seed}, {n} "
+                    f"of B={B}")
+                max_err = max(max_err, err)
+                if seed == PARITY_SEEDS[0]:
+                    rows[f"{key}_{B}"] = dict(
+                        time_accept(base, lanes, out, st, hbm), live=n)
+            del base
     gen = torch.Generator(device="cuda")
     gen.manual_seed(PARITY_SEEDS[0])
     base = parity_state(G_FULL, W_FULL, gen, active_share=1.0)
@@ -1222,6 +1246,239 @@ def phase_failover_and_replay(device="cuda", n_groups=RT_GROUPS,
     return fo, reps
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+
+# metric_name{label="value",...} <number>
+_SAMPLE = re.compile(
+    r'^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)'
+    r'(?P<labels>\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*"'
+    r'(?:,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*")*\})?'
+    r' (?P<value>[-+]?(?:[0-9]*\.?[0-9]+(?:[eE][-+]?[0-9]+)?'
+    r'|NaN|[+-]?Inf))$')
+
+
+def exposition_series(text: str) -> dict:
+    """A Prometheus text exposition (format 0.0.4) as ``{series: value}``;
+    raises on a malformed line, a family declared twice, a duplicate
+    series, or a sample of no declared family."""
+    typed, series = {}, {}
+    for ln in text.splitlines():
+        if not ln.strip() or ln.startswith("# HELP "):
+            continue
+        if ln.startswith("# TYPE "):
+            _, _, name, mtype = ln.split(None, 3)
+            if name in typed or mtype not in ("counter", "gauge",
+                                              "summary", "histogram"):
+                raise AssertionError(f"metrics: bad TYPE line {ln!r}")
+            typed[name] = mtype
+            continue
+        m = _SAMPLE.match(ln)
+        if m is None:
+            raise AssertionError(f"metrics: malformed line {ln!r}")
+        key = ln.rsplit(" ", 1)[0]
+        if key in series:
+            raise AssertionError(f"metrics: duplicate series {key}")
+        base = m.group("name")
+        if base not in typed and not any(
+                base == n + suf and t == "summary"
+                for n, t in typed.items() for suf in ("_sum", "_count")):
+            raise AssertionError(f"metrics: {base} has no TYPE")
+        series[key] = float(m.group("value"))
+    if not series:
+        raise AssertionError("metrics: empty exposition")
+    return series
+
+
+def _scrape(port: int, path: str) -> bytes:
+    """GET ``path`` off a node's stats listener on loopback."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        if r.status != 200:
+            raise AssertionError(f"lanes: GET {path} answered {r.status}")
+        return r.read()
+
+
+def _check_scrapes(node, n_groups, slab_bytes):
+    """``/engine``, ``/engine/kernels`` and ``/metrics`` of one node of
+    the lanes phase; returns the ``/engine`` view and the series count."""
+    port = node.stats_http.port
+    eng = json.loads(_scrape(port, "/engine"))
+    mem, bal, waves = eng["memory"], eng["balance"], eng["waves"]
+    what = f"lanes: node {node.id} /engine"
+    if eng["engine_shards"] != LANES:
+        raise AssertionError(f"{what}: engine_shards {eng['engine_shards']}")
+    if len(bal["shards"]) != LANES or \
+            sum(bal["shards"]) != bal["rows_active"] or \
+            bal["rows_active"] != n_groups:
+        raise AssertionError(f"{what}: balance {bal}")
+    if sorted(waves["per_shard"]) != [str(k) for k in range(LANES)]:
+        raise AssertionError(f"{what}: waves.per_shard "
+                             f"{sorted(waves['per_shard'])}")
+    if mem["total_bytes"] != sum(mem["planes"].values()) or \
+            (slab_bytes is not None and mem["total_bytes"] != slab_bytes):
+        raise AssertionError(f"{what}: memory {mem['total_bytes']} B, "
+                             f"planes {mem['planes']}, one slab "
+                             f"{slab_bytes} B")
+    ks = json.loads(_scrape(port, "/engine/kernels"))
+    want = {"propose_p", "accept_p", "accept_reply_p", "commit_p",
+            "accept_commit_p", "request_reply_p"}
+    if set(ks["costs"]) != want or any(
+            r["flops"] is not None or not r["bytes_accessed"] > 0
+            for r in ks["costs"].values()):
+        raise AssertionError(f"lanes: node {node.id} /engine/kernels "
+                             f"{ks['costs']}")
+    series = exposition_series(_scrape(port, "/metrics").decode())
+    if series.get("gp_engine_shards") != LANES:
+        raise AssertionError(f"lanes: node {node.id} /metrics lacks "
+                             "gp_engine_shards 4")
+    return eng, len(series)
+
+
+def phase_lanes(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
+                n_requests=RT_REQUESTS, depth=RT_DEPTH, slab_bytes=None):
+    """Phase 5's drive at ``ENGINE_SHARDS=4``, every node's stats listener
+    on: each node's rows in four slabs, each slab on its own stream,
+    every lane's worker submitting waves.  Checks phase 5's answers and
+    agreement, four WAL segments a node, the streams, the per-lane
+    profiler totals and the live scrapes (``slab_bytes``: phase 5's one
+    slab, which the four must add up to).  ``device="cpu"`` rehearses
+    the drive off the card."""
+    import asyncio
+    import os
+    import shutil
+    import tempfile
+    from gigapaxos_tpu_torch.net.cluster import (merge_cluster_engine,
+                                                 scrape_cluster)
+    from gigapaxos_tpu_torch.ops.accept_cuda import accept
+    from gigapaxos_tpu_torch.paxos.backend import ShardedColumnarBackend
+    from gigapaxos_tpu_torch.paxos.interfaces import CounterApp
+    from gigapaxos_tpu_torch.paxos.paxosconfig import PC
+    from gigapaxos_tpu_torch.testing.harness import PaxosEmulation
+    from gigapaxos_tpu_torch.utils.config import Config
+    from gigapaxos_tpu_torch.utils.profiler import DelayProfiler
+    Config.set(PC.COLUMNAR_DEVICE, device)
+    Config.set(PC.PIPELINE_WORKER, True)
+    Config.set(PC.FUSE_WAVES, "auto")
+    Config.set(PC.INTAKE_BACKLOG_LIMIT, RT_BACKLOG_LIMIT)
+    Config.set(PC.PAUSE_IDLE_S, RT_PAUSE_IDLE_S)
+    Config.set(PC.ENGINE_SHARDS, LANES)
+    Config.set(PC.STATS_PORT, 0)
+    logdir = tempfile.mkdtemp(prefix="gp_chip_lanes_")
+    emu = None
+    out = {"groups": n_groups, "requests": n_requests, "depth": depth}
+    try:
+        emu = PaxosEmulation(logdir, n_nodes=RT_NODES, n_groups=0,
+                             app_cls=CounterApp, capacity=capacity,
+                             window=RT_WINDOW, sync_wal=False,
+                             failure_timeout_s=RT_FAILURE_TIMEOUT_S)
+        nodes = [emu.nodes[i] for i in range(RT_NODES)]
+        for n in nodes:
+            if n.shards != LANES or not isinstance(
+                    n.backend, ShardedColumnarBackend) or \
+                    [s.capacity for s in n.backend.slabs] != \
+                    [capacity // LANES] * LANES:
+                raise AssertionError(f"lanes: node {n.id} runs "
+                                     f"{n.shards} lanes")
+            if n.stats_http is None:
+                raise AssertionError(f"lanes: node {n.id} has no stats "
+                                     "listener")
+        if device == "cuda":
+            if not all(n._fuse_waves for n in nodes):
+                raise AssertionError("lanes: fused waves are off on the "
+                                     "card")
+            # one stream a slab, none of them the default stream
+            handles = [s.stream.cuda_stream for n in nodes
+                       for s in n.backend.slabs]
+            legacy = torch.cuda.default_stream().cuda_stream
+            if len(set(handles)) != len(handles) or \
+                    any(h in (0, legacy) for h in handles):
+                raise AssertionError(f"lanes: slab streams {handles}, "
+                                     f"default {legacy}")
+            out["streams"] = handles
+        t0 = time.perf_counter()
+        emu.create_groups(n_groups)
+        out["create_s"] = time.perf_counter() - t0
+        DelayProfiler.clear()
+        accept.launches = 0
+        res = emu.run_load_fast(n_requests, concurrency=depth,
+                                timeout=RT_TIMEOUT_S)
+        if res["ok"] != n_requests or res["errors"]:
+            raise AssertionError(f"lanes: {res['ok']} of {n_requests} "
+                                 f"answered, {res['errors']} errors: "
+                                 f"{json.dumps(res)}")
+        _wait(lambda: all(c == n_requests for c in _executed(nodes)),
+              RT_TIMEOUT_S, "every replica to execute every request",
+              lambda: f"executed {_executed(nodes)} of {n_requests}")
+        out["res"] = res
+        out["launches"] = accept.launches
+        totals = DelayProfiler.totals()
+        out["lanes"] = {k: {tag: totals.get(f"{tag}@{k}", (0.0, 0, 0))[:3]
+                            for tag in ("eng.submit", "eng.collect",
+                                        "eng.overlap")}
+                        for k in range(LANES)}
+        out["totals"] = {k: v for k, v in totals.items()
+                         if k.startswith(("w.", "eng.submit",
+                                          "eng.collect"))
+                         and "@" not in k}
+        for k, lane in out["lanes"].items():
+            if not lane["eng.submit"][1]:
+                raise AssertionError(f"lanes: lane {k}'s slab submitted "
+                                     "no wave")
+        out["installs"] = sum(n.n_installs for n in nodes)
+        out["redriven"] = sum(n.n_redriven for n in nodes)
+        # the flight deck, scraped live off each node's listener
+        out["engine"], out["series"] = [], []
+        for n in nodes:
+            eng, n_series = _check_scrapes(n, n_groups, slab_bytes)
+            out["engine"].append(eng)
+            out["series"].append(n_series)
+        peers = {n.id: ("127.0.0.1", n.stats_http.port) for n in nodes}
+        merged = merge_cluster_engine(asyncio.run(
+            scrape_cluster(peers, "/engine", timeout=60.0)))
+        if merged["cluster"]["nodes"] != {n.id: 1 for n in nodes}:
+            raise AssertionError(f"lanes: cluster merge "
+                                 f"{merged['cluster']}")
+        out["merged_bytes"] = merged["memory"]["total_bytes"]
+        for i in range(RT_NODES):
+            segs = sorted(f for f in os.listdir(os.path.join(logdir,
+                                                             f"n{i}"))
+                          if f.startswith("wal"))
+            if segs != [f"wal-{k}.log" for k in range(LANES)]:
+                raise AssertionError(f"lanes: node {i}'s WAL files {segs}")
+        emu.stop()
+        emu = None
+        _wait(lambda: not _runtime_threads(), RT_TIMEOUT_S,
+              "the nodes' threads to end after stop")
+        counts = [dict(n.app.count) for n in nodes]
+        digests = [dict(n.app.digest) for n in nodes]
+        if any(c != counts[0] for c in counts[1:]):
+            raise AssertionError("lanes: replicas' counts differ")
+        if any(d != digests[0] for d in digests[1:]):
+            raise AssertionError("lanes: replicas' digests differ")
+        for i, n in enumerate(nodes):
+            names = sorted(counts[i])
+            rows = np.asarray([n.table.by_name(g).row for g in names])
+            cur = n.backend.inspect_rows(rows)["exec_cursor"]
+            for name, c in zip(names, cur.tolist()):
+                if c != counts[i][name]:
+                    raise AssertionError(
+                        f"lanes: node {i} group {name}: exec_cursor {c} "
+                        f"!= count {counts[i][name]}")
+        out["groups_with_traffic"] = len(counts[0])
+        if device == "cuda" and out["launches"] < 1:
+            raise AssertionError("lanes: the accept kernel was not "
+                                 "launched")
+        if "jax" in sys.modules:
+            raise AssertionError("lanes: jax was imported")
+    finally:
+        if emu is not None:
+            emu.stop()
+        Config.clear()
+        shutil.rmtree(logdir, ignore_errors=True)
+    return out
+
+
 def _failover_lines(fo, line):
     for when in ("pre", "post"):
         r = fo[when]
@@ -1289,6 +1546,36 @@ def _runtime_lines(rt, line):
         info(f"runtime engine {i} memory_info: {json.dumps(m)}")
 
 
+def _lanes_lines(ln, rt, line):
+    """The lanes phase beside phase 5's single lane, from the same run."""
+    for what, d in (("one lane (phase 5)", rt), (f"{LANES} lanes", ln)):
+        r = d["res"]
+        info(f"lanes compare, {what}: groups created in "
+             f"{d['create_s']:.3f} s; {r['ok']} of {d['requests']} "
+             f"answered at depth {d['depth']} in {r['wall_s']} s: "
+             f"{r['throughput_rps']} decided requests/s, client p50 "
+             f"{r['lat_p50_ms']} ms, p99 {r['lat_p99_ms']} ms; re-driven "
+             f"{d['redriven']}, installs {d['installs']}, accept launches "
+             f"{d['launches']} ({line})")
+    for k, lane in ln["lanes"].items():
+        info(f"lanes: lane {k}: " + ", ".join(
+            f"{tag}@{k} {v[0]:.4f} s over {v[1]} calls, {v[2]} items"
+            for tag, v in lane.items()))
+    for tag in sorted(ln["totals"]):
+        wall, calls, items = ln["totals"][tag][:3]
+        info(f"lanes profiler {tag}: {wall:.4f} s over {calls} calls, "
+             f"{items} items")
+    e = ln["engine"][0]
+    info(f"lanes: replicas agree on counts, digests and exec_cursor over "
+         f"{ln['groups_with_traffic']} groups with traffic; wal-0..3.log on "
+         f"every node; slab streams {ln.get('streams')}; /engine of node 0: "
+         f"balance {e['balance']['shards']}, memory "
+         f"{e['memory']['total_bytes']} B in {LANES} slabs "
+         f"({e['memory']['per_shard']}); /metrics series "
+         f"{ln['series']}; cluster merge {ln['merged_bytes']} B, every node "
+         "up")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runtime-only", choices=("cuda", "cpu"),
@@ -1298,6 +1585,9 @@ def main(argv=None) -> int:
     ap.add_argument("--failover-only", action="store_true",
                     help="run only phases 6 and 7 (failover, replay), "
                     "print their lines and exit")
+    ap.add_argument("--lanes-only", action="store_true",
+                    help="run only phases 5 and 8 (one engine lane, "
+                    "then four), print their lines and exit")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         return fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -1321,6 +1611,14 @@ def main(argv=None) -> int:
             _replay_lines(reps, line)
             info("failover-only: phases 6 and 7")
             return 0
+        if args.lanes_only:
+            _build.build_all()
+            rt = phase_runtime()
+            _runtime_lines(rt, line)
+            ln = phase_lanes(slab_bytes=rt["memory"][0]["total_bytes"])
+            _lanes_lines(ln, rt, line)
+            info("lanes-only: phases 5 and 8")
+            return 0
         t0 = time.perf_counter()
         secs = _build.build_all()
         info(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})}"
@@ -1336,8 +1634,9 @@ def main(argv=None) -> int:
              f"B={BIG_B}; {CONTENDED[0]} lanes on {CONTENDED[1]} rows; "
              f"the storm's lanes at B={STORM_B}; G={G_FULL}, W={W_FULL}; "
              f"and on the runtime's slab (G={RT_CAPACITY}, W={RT_WINDOW}) "
-             f"at every bucket {list(RT_BUCKETS)} with live lanes padded "
-             f"as ColumnarBackend pads them, seeds {list(PARITY_SEEDS)}")
+             f"and a lane's slab (G={LANE_CAPACITY}) at every bucket "
+             f"{list(RT_BUCKETS)} with live lanes padded as "
+             f"ColumnarBackend pads them, seeds {list(PARITY_SEEDS)}")
         phase_cpu_parity()
         info("parity: storm steps and SPI waves on the card bit-identical "
              "to the same calls on the CPU (small size)")
@@ -1367,6 +1666,8 @@ def main(argv=None) -> int:
         fo, reps = phase_failover_and_replay()
         _failover_lines(fo, line)
         _replay_lines(reps, line)
+        ln = phase_lanes(slab_bytes=rt["memory"][0]["total_bytes"])
+        _lanes_lines(ln, rt, line)
     except Exception as e:  # every phase's failure ends the run non-zero
         import traceback
         traceback.print_exc()
@@ -1379,12 +1680,14 @@ def main(argv=None) -> int:
         "source": "gigapaxos_tpu_torch/ops/csrc/accept.cu",
         "replaces": "gigapaxos_tpu/ops/pallas_accept.py:165",
         "launches": storm["launches"] + spi["launches"] + rt["launches"]
-        + fo["launches"] + sum(r["launches"] for r in reps),
+        + fo["launches"] + sum(r["launches"] for r in reps)
+        + ln["launches"],
         "launches_by_path": {"storm": storm["launches"],
                              "spi": spi["launches"],
                              "runtime": rt["launches"],
                              "failover": fo["launches"],
-                             "replay": [r["launches"] for r in reps]},
+                             "replay": [r["launches"] for r in reps],
+                             "lanes": ln["launches"]},
         "parity": "bit-exact",
         "max_abs_err": max_err,
         "lanes": max(PARITY_BS),

@@ -48,11 +48,12 @@ The port's own copy of ``gigapaxos_tpu/blackbox/replay.py``, reading
 the same captures: a ``.gpbb`` written by either package replays here
 and there.  The replay node is the port's ``PaxosNode``, so its engine
 runs on ``PC.COLUMNAR_DEVICE`` (``"cuda"`` unless the caller asks for
-the CPU), and what that node does not run yet it refuses rather than
-replaying without: a capture of engine lanes (``engine_shards > 1``)
-or a ``mesh`` above one device, from the override or the manifest,
-raises ``NotImplementedError``.  ``"off"``, ``"auto"`` and 1 are one
-device, as the reference resolves them.  Two more departures: the group
+the CPU); a capture of engine lanes (``engine_shards > 1``) replays
+through a node of as many lanes, one slab and one CUDA stream each.
+What that node does not run yet it refuses rather than replaying
+without: a ``mesh`` above one device, from the override or the
+manifest, raises ``NotImplementedError``.  ``"off"``, ``"auto"`` and 1
+are one device, as the reference resolves them.  Two more departures: the group
 table is recreated in row-order runs of one ``create_groups`` call each
 (the same rows, checked as before), and the report adds ``create_s`` and
 ``replay_s``, the seconds spent recreating the table and re-feeding the

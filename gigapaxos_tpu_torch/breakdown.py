@@ -14,7 +14,14 @@ Runs the port's two main paths at full scale under ``torch.profiler``:
   from one thread, then from three threads at once, one engine each (the
   three nodes of ``chip_smoke.py`` phase 5 in one process), then from
   one thread beside a thread that runs only Python, at the interpreter's
-  switch interval and at a tenth of it.
+  switch interval and at a tenth of it;
+- ``lanes``: the same acceptor wave on a lane's slab of
+  ``chip_smoke.py`` phase 8 (``ColumnarBackend(2**15, 16)`` holding
+  25,000 groups, 32 lanes a wave), driven from twelve threads at once
+  (three nodes of four lanes), one slab each: first plain slabs on the
+  default stream launching freely, then lane slabs (``lane=True``: a
+  stream each, launches under the process-wide lane launch lock), and
+  one lane slab from one thread alone.
 
 For each it reports the host wall per step and decisions per second
 (profiler off), then, from a profiled window of as many steps, the
@@ -26,9 +33,11 @@ One warm-up step precedes both windows.  For ``wave`` it reports the
 host wall of a wave (median and mean), alone, with three engine threads
 and beside a Python-only thread, the
 profiled device time and busy share, and the CUDA runtime calls a wave
-makes (launches, copies, synchronizations) by name.
+makes (launches, copies, synchronizations) by name.  For ``lanes`` it
+reports each drive's waves a second in all and the median wall of a
+wave.
 
-Run: ``python -m gigapaxos_tpu_torch.breakdown [--paths storm,spi,wave]
+Run: ``python -m gigapaxos_tpu_torch.breakdown [--paths storm,spi,wave,lanes]
 [--out FILE.json]`` on a machine with a CUDA card (it exits non-zero
 without one).
 """
@@ -51,6 +60,9 @@ G, W, R = 1 << 20, 16, 3
 STORM_B, SPI_B = 1 << 18, 16384
 # the runtime's acceptor wave at config 2 (chip_smoke.py phase 5)
 RT_G, RT_GROUPS, RT_LANES, RT_WAVES = 1 << 17, 100_000, 64, 100
+# a lane's slab of the runtime at four lanes (chip_smoke.py phase 8): a
+# quarter of the rows and groups, and about 32 lanes a wave
+LN_G, LN_GROUPS, LN_LANES, LN_THREADS = 1 << 15, 25_000, 32, 12
 
 
 def _device_us(evt) -> float:
@@ -168,27 +180,29 @@ def spi_breakdown(steps: int = 4) -> dict:
     return out
 
 
-def _acceptor(seed: int, waves: int, device="cuda"):
+def _acceptor(seed: int, waves: int, device="cuda", capacity=RT_G,
+              groups=RT_GROUPS, n_lanes=RT_LANES, lane=False):
     """A runtime-shaped acceptor engine and a function that runs its next
-    fused wave: ``RT_LANES`` accepts on distinct live rows at each row's
+    fused wave: ``n_lanes`` accepts on distinct live rows at each row's
     next slot, with the previous wave's lanes committed.  The lanes are
     made before any wave runs, so a wave's wall is the engine's alone.
-    ``device="cpu"`` rehearses the drive off the card."""
+    ``lane`` builds the slab as an engine lane's.  ``device="cpu"``
+    rehearses the drive off the card."""
     from gigapaxos_tpu_torch.paxos.backend import ColumnarBackend
-    b = ColumnarBackend(RT_G, W, device=device)
-    rows = np.arange(RT_GROUPS, dtype=np.int32)
-    zeros = np.zeros(RT_GROUPS, np.int32)
-    b.create(rows, np.full(RT_GROUPS, R, np.int32), zeros, zeros,
-             np.zeros(RT_GROUPS, bool))
+    b = ColumnarBackend(capacity, W, device=device, lane=lane)
+    rows = np.arange(groups, dtype=np.int32)
+    zeros = np.zeros(groups, np.int32)
+    b.create(rows, np.full(groups, R, np.int32), zeros, zeros,
+             np.zeros(groups, bool))
     rng = np.random.default_rng(seed)
-    nxt = np.zeros(RT_GROUPS, np.int32)
+    nxt = np.zeros(groups, np.int32)
     lanes = []
     for _ in range(waves + 1):
-        g = rng.permutation(RT_GROUPS)[:RT_LANES].astype(np.int32)
+        g = rng.permutation(groups)[:n_lanes].astype(np.int32)
         lanes.append((g, nxt[g].copy(),
-                      rng.integers(1, 1 << 62, RT_LANES).astype(np.uint64)))
+                      rng.integers(1, 1 << 62, n_lanes).astype(np.uint64)))
         nxt[g] += 1
-    bal = np.zeros(RT_LANES, np.int32)
+    bal = np.zeros(n_lanes, np.int32)
     empty = (np.zeros(0, np.int32), np.zeros(0, np.int32),
              np.zeros(0, np.uint64))
     at = [0]
@@ -316,15 +330,62 @@ def wave_breakdown(waves: int = RT_WAVES) -> dict:
     }
 
 
+def _threaded(waves_fns, waves: int):
+    """Each function of ``waves_fns`` driven ``waves`` times from its own
+    thread, all at once: (waves a second in all, median wall ms)."""
+    walls: List[List[float]] = [[] for _ in waves_fns]
+
+    def drive(k):
+        walls[k] = _walls(waves_fns[k], waves)
+
+    threads = [threading.Thread(target=drive, args=(k,))
+               for k in range(len(waves_fns))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    return (len(waves_fns) * waves / wall,
+            1e3 * statistics.median(w for ws in walls for w in ws))
+
+
+def lanes_breakdown(waves: int = RT_WAVES, device="cuda",
+                    threads: int = LN_THREADS) -> dict:
+    """The acceptor wave on lane-sized slabs from ``threads`` threads at
+    once, plain slabs and then lane slabs, and one lane slab alone
+    (module docstring).  ``device="cpu"`` rehearses it off the card."""
+    out = {"capacity": LN_G, "groups": LN_GROUPS, "lanes": LN_LANES,
+           "threads": threads, "waves": waves}
+    for key, lane in (("plain", False), ("lane", True)):
+        fns = [_acceptor(s, 2 * waves + 1, device, LN_G, LN_GROUPS, LN_LANES,
+                         lane)[1] for s in range(threads)]
+        for fn in fns:
+            fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        rate, median = _threaded(fns, waves)
+        out[f"{key}_waves_per_s"] = rate
+        out[f"{key}_wave_ms_median"] = median
+        if lane:
+            ms = [1e3 * w for w in _walls(fns[0], waves)]
+            out["alone_waves_per_s"] = len(ms) / (sum(ms) / 1e3)
+            out["alone_wave_ms_median"] = statistics.median(ms)
+        del fns
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--paths", default="storm,spi,wave",
+    ap.add_argument("--paths", default="storm,spi,wave,lanes",
                     help="comma-separated paths to run (default: all)")
     ap.add_argument("--out", help="also write the result as JSON here")
     args = ap.parse_args(argv)
     paths = [p for p in args.paths.split(",") if p]
     runs = {"storm": storm_breakdown, "spi": spi_breakdown,
-            "wave": wave_breakdown}
+            "wave": wave_breakdown, "lanes": lanes_breakdown}
     if any(p not in runs for p in paths):
         ap.error(f"--paths takes {','.join(runs)}")
     if not torch.cuda.is_available():
@@ -369,6 +430,16 @@ def main(argv=None) -> int:
               f"[{card}]")
         for k, n in sorted(r["cuda_runtime_calls_per_wave"].items()):
             print(f"  {n:8.2f} a wave  {k}")
+    if "lanes" in res:
+        r = res["lanes"]
+        print(f"lanes: {r['lanes']} lanes a wave on {r['capacity']}-row "
+              f"slabs from {r['threads']} threads: plain slabs "
+              f"{r['plain_waves_per_s']:.1f} waves/s in all "
+              f"({r['plain_wave_ms_median']:.3f} ms median wall), lane "
+              f"slabs {r['lane_waves_per_s']:.1f} waves/s "
+              f"({r['lane_wave_ms_median']:.3f} ms); one lane slab alone "
+              f"{r['alone_waves_per_s']:.1f} waves/s "
+              f"({r['alone_wave_ms_median']:.3f} ms) [{card}]")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

@@ -2,7 +2,7 @@
 
 Port of ``gigapaxos_tpu/paxos/backend.py``.  The node runtime drives all
 acceptor/coordinator state transitions through this batch-level
-interface; this module carries two engines:
+interface; this module carries three engines:
 
 - :class:`ScalarBackend` — one Python object per group
   (``ops.oracle.OracleGroup``), looping over batch items: the reference
@@ -12,15 +12,22 @@ interface; this module carries two engines:
   and chunking, every accept through the hand-written accept kernel,
   and non-blocking submit/collect waves (CUDA stream + pinned host
   buffers + an event).
+- :class:`ShardedColumnarBackend` — S ``ColumnarBackend`` slabs behind
+  the one SPI (engine lanes, ``PC.ENGINE_SHARDS``), each slab on a CUDA
+  stream of its own.
 
 All SPI inputs/outputs are numpy arrays (host-side), as in the JAX
-package.  Not ported in this slice: ``NativeBackend``,
-``ShardedColumnarBackend`` and the compile ledger (torch does not jit).
+package.  Not ported: ``NativeBackend``.  ``kernel_costs`` counts the
+bytes each wave's bodies move from the shapes, where the reference asks
+XLA's cost analysis of its compiled programs (torch compiles none).
 """
 
 from __future__ import annotations
 
 import abc
+import contextlib
+import functools
+import threading
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -437,11 +444,12 @@ class EngineWave:
     DelayProfiler total, with the submit->collect gap (the overlap the
     caller actually won) under ``eng.overlap``."""
 
-    __slots__ = ("_finish", "_n", "_submitted", "_wave")
+    __slots__ = ("_finish", "_n", "_submitted", "_wave", "_sfx")
 
-    def __init__(self, finish: Callable, n: int):
+    def __init__(self, finish: Callable, n: int, sfx: str = ""):
         self._finish = finish
         self._n = n
+        self._sfx = sfx  # "@<shard>" on a sharded lane's slab, else ""
         self._submitted = time.monotonic()
         # bind the wave id at submit: collect may run after the worker
         # thread has moved on to a later batch's wave
@@ -451,13 +459,22 @@ class EngineWave:
         t0 = time.monotonic()
         overlap = t0 - self._submitted
         DelayProfiler.add_total("eng.overlap", overlap, self._n)
+        if self._sfx:
+            DelayProfiler.add_total("eng.overlap" + self._sfx, overlap,
+                                    self._n)
         sp = RequestInstrumenter.span_begin(
             "eng.collect", wave=self._wave, lanes=self._n,
             overlap_s=round(overlap, 6))
         res = self._finish()
         RequestInstrumenter.span_end(sp)
         DelayProfiler.update_total("eng.collect", t0, self._n)
-        DelayProfiler.update_delay("eng.wave", self._submitted)
+        # full wave wall (submit->materialized) as a histogram, per
+        # shard when this slab is one lane of a sharded engine
+        DelayProfiler.update_delay("eng.wave" + self._sfx,
+                                   self._submitted)
+        if self._sfx:
+            DelayProfiler.update_total("eng.collect" + self._sfx, t0,
+                                       self._n)
         return res
 
 
@@ -476,6 +493,30 @@ def _collect_cols(outs: List[Tuple[torch.Tensor, int]],
     return np.concatenate(parts, axis=1)
 
 
+# One lane's slab launches a wave at a time in the process.  A wave is a
+# few hundred torch calls, each of which gives up the interpreter lock
+# and takes it back; with every lane's worker launching at once each
+# call waits its turn behind the others' and the process launches fewer
+# waves a second in all than one worker alone (PERF.md §5, the lanes
+# phase).  The launches only queue work: the lanes' waves still run side
+# by side on the card, and their collects wait outside the lock.
+_LANE_LAUNCH_LOCK = threading.Lock()
+
+
+def _on_stream(method):
+    """Run a :class:`ColumnarBackend` method with the slab's own CUDA
+    stream current, when it has one: every kernel, copy and event of
+    the call is then queued on that stream, in the order the calls
+    come, whichever thread makes them."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        if self.stream is None:
+            return method(self, *args, **kwargs)
+        with torch.cuda.stream(self.stream):
+            return method(self, *args, **kwargs)
+    return run
+
+
 class ColumnarBackend(AcceptorBackend):
     """Columnar kernels over [G, W] torch tensors on one device.
 
@@ -485,15 +526,36 @@ class ColumnarBackend(AcceptorBackend):
     the same ladder keeps the two engines' states bit-identical.  Every
     accept lane goes through the hand-written accept kernel on a CUDA
     device (its plain torch version on the CPU).
+
+    ``lane`` (a lane's slab of :class:`ShardedColumnarBackend`) gives
+    the slab a CUDA stream of its own, made and filled there, and every
+    method that touches the slab runs with it current
+    (:func:`_on_stream`): the lanes' waves then run side by side on the
+    card.  A pool stream does not wait for the legacy default stream,
+    so nothing of such a slab may run there — a row op from the loop
+    thread, a scrape's ``row_ownership`` from the stats listener's —
+    and none does.  A lane's slab also launches its waves under
+    ``_LANE_LAUNCH_LOCK``.  Without ``lane`` (one slab a node) the slab
+    runs on the caller's current stream, unlocked.  ``prof_suffix``
+    ("@<k>") tags the slab's profiler totals with its lane.
     """
 
-    def __init__(self, capacity: int, window: int = 16, device="cuda"):
+    def __init__(self, capacity: int, window: int = 16, device="cuda",
+                 prof_suffix: str = "", lane: bool = False):
         self.device = resolve_device(device)
-        self.state = make_state(capacity, window, self.device)
+        self._cuda = self.device.type == "cuda"
+        self.stream = torch.cuda.Stream(self.device) \
+            if lane and self._cuda else None
+        self._launch_lock = _LANE_LAUNCH_LOCK if lane \
+            else contextlib.nullcontext()
+        self._sfx = prof_suffix
         self._window = window
         self.capacity = capacity
-        self._cuda = self.device.type == "cuda"
         self.engine_platform = self.device.type
+        self._kcosts: Optional[Dict[str, dict]] = None
+        with torch.cuda.stream(self.stream) if self.stream is not None \
+                else contextlib.nullcontext():
+            self.state = make_state(capacity, window, self.device)
         if self._cuda:
             # build the kernel at construction, not inside the first
             # wave (an nvcc run mid-serving reads as a latency spike)
@@ -564,14 +626,17 @@ class ColumnarBackend(AcceptorBackend):
                                                 n, _BUCKET_CAP)))
         cols = [(np.asarray(c), f) for c, f in cols]
         outs = []
-        for a, bnd in _chunks(n):
-            m = bnd - a
-            _, o = kern(self.state, self._packed(
-                m, *[(c[a:bnd], f) for c, f in cols]))
-            outs.append((self._d2h(o), m))
-        ready = self._fence()
+        with self._launch_lock:
+            for a, bnd in _chunks(n):
+                m = bnd - a
+                _, o = kern(self.state, self._packed(
+                    m, *[(c[a:bnd], f) for c, f in cols]))
+                outs.append((self._d2h(o), m))
+            ready = self._fence()
         RequestInstrumenter.span_end(sp, chunks=len(outs))
         DelayProfiler.update_total("eng.submit", t0, n)
+        if self._sfx:
+            DelayProfiler.update_total("eng.submit" + self._sfx, t0, n)
         return outs, ready
 
     def _submit2(self, kern, n1, cols1, n2, cols2):
@@ -583,25 +648,32 @@ class ColumnarBackend(AcceptorBackend):
         cols1 = [(np.asarray(c), f) for c, f in cols1]
         cols2 = [(np.asarray(c), f) for c, f in cols2]
         outs1, outs2 = [], []
-        for a, bnd in _chunks(max(n1, n2)):
-            a1, b1 = min(a, n1), min(bnd, n1)
-            a2, b2 = min(a, n2), min(bnd, n2)
-            b = _bucket(max(b1 - a1, b2 - a2))
-            _, o1, o2 = kern(
-                self.state,
-                self._packed(b1 - a1, *[(c[a1:b1], f) for c, f in cols1],
-                             bucket=b),
-                self._packed(b2 - a2, *[(c[a2:b2], f) for c, f in cols2],
-                             bucket=b))
-            outs1.append((self._d2h(o1), b1 - a1))
-            outs2.append((self._d2h(o2), b2 - a2))
-        ready = self._fence()
+        with self._launch_lock:
+            for a, bnd in _chunks(max(n1, n2)):
+                a1, b1 = min(a, n1), min(bnd, n1)
+                a2, b2 = min(a, n2), min(bnd, n2)
+                b = _bucket(max(b1 - a1, b2 - a2))
+                _, o1, o2 = kern(
+                    self.state,
+                    self._packed(b1 - a1,
+                                 *[(c[a1:b1], f) for c, f in cols1],
+                                 bucket=b),
+                    self._packed(b2 - a2,
+                                 *[(c[a2:b2], f) for c, f in cols2],
+                                 bucket=b))
+                outs1.append((self._d2h(o1), b1 - a1))
+                outs2.append((self._d2h(o2), b2 - a2))
+            ready = self._fence()
         RequestInstrumenter.span_end(sp, chunks=len(outs1))
         DelayProfiler.update_total("eng.submit", t0, n1 + n2)
+        if self._sfx:
+            DelayProfiler.update_total("eng.submit" + self._sfx, t0,
+                                       n1 + n2)
         return (outs1, outs2), ready
 
     # -- ops ---------------------------------------------------------------
 
+    @_on_stream
     def create(self, rows, members, versions, init_bal, self_coord):
         rows, members = np.asarray(rows), np.asarray(members)
         versions, init_bal = np.asarray(versions), np.asarray(init_bal)
@@ -614,12 +686,14 @@ class ColumnarBackend(AcceptorBackend):
                 self._pad1(self_coord[a:b], False, bool),
                 self._valid(b - a))
 
+    @_on_stream
     def delete(self, rows):
         rows = np.asarray(rows)
         for a, b in _chunks(len(rows)):
             kernels.delete_groups(self.state, self._pad1(rows[a:b], 0),
                                   self._valid(b - a))
 
+    @_on_stream
     def accept_submit(self, rows, slots, bals, req_ids) -> EngineWave:
         """Non-blocking accept wave through the accept kernel; the
         blocking :meth:`accept` is this submit + an immediate collect."""
@@ -633,11 +707,12 @@ class ColumnarBackend(AcceptorBackend):
             out = _collect_cols(outs, ready)
             return AcceptRes(out[0] != 0, out[1] != 0, out[2] != 0,
                              out[3])
-        return EngineWave(finish, n)
+        return EngineWave(finish, n, self._sfx)
 
     def accept(self, rows, slots, bals, req_ids) -> AcceptRes:
         return self.accept_submit(rows, slots, bals, req_ids).collect()
 
+    @_on_stream
     def accept_reply_submit(self, rows, slots, bals, senders, acked
                             ) -> EngineWave:
         n = len(rows)
@@ -653,13 +728,14 @@ class ColumnarBackend(AcceptorBackend):
                 newly, out[1] != 0, np.where(newly, out[3], 0),
                 np.where(newly, out[4], 0),
                 np.where(newly, out[2], NO_BALLOT))
-        return EngineWave(finish, n)
+        return EngineWave(finish, n, self._sfx)
 
     def accept_reply(self, rows, slots, bals, senders, acked
                      ) -> AcceptReplyRes:
         return self.accept_reply_submit(rows, slots, bals, senders,
                                         acked).collect()
 
+    @_on_stream
     def propose(self, rows, req_ids) -> ProposeRes:
         n = len(rows)
         lo, hi = _split64(req_ids)
@@ -669,6 +745,7 @@ class ColumnarBackend(AcceptorBackend):
         return ProposeRes(granted, out[1] != 0, out[2] != 0,
                           np.where(granted, out[3], NO_SLOT), out[4])
 
+    @_on_stream
     def commit_submit(self, rows, slots, req_ids) -> EngineWave:
         n = len(rows)
         lo, hi = _split64(req_ids)
@@ -679,11 +756,12 @@ class ColumnarBackend(AcceptorBackend):
             out = _collect_cols(outs, ready)
             return CommitRes(out[0] != 0, out[1] != 0, out[2] != 0,
                              out[3])
-        return EngineWave(finish, n)
+        return EngineWave(finish, n, self._sfx)
 
     def commit(self, rows, slots, req_ids) -> CommitRes:
         return self.commit_submit(rows, slots, req_ids).collect()
 
+    @_on_stream
     def accept_commit_submit(self, rows_a, slots_a, bals_a, reqs_a,
                              rows_c, slots_c, reqs_c) -> EngineWave:
         """ONE fused dispatch per chunk for the acceptor wave: accepts
@@ -703,7 +781,7 @@ class ColumnarBackend(AcceptorBackend):
             c = _collect_cols(outs_c, None)
             return (AcceptRes(a[0] != 0, a[1] != 0, a[2] != 0, a[3]),
                     CommitRes(c[0] != 0, c[1] != 0, c[2] != 0, c[3]))
-        return EngineWave(finish, na + nc)
+        return EngineWave(finish, na + nc, self._sfx)
 
     def accept_commit(self, rows_a, slots_a, bals_a, reqs_a,
                       rows_c, slots_c, reqs_c
@@ -712,6 +790,7 @@ class ColumnarBackend(AcceptorBackend):
                                          reqs_a, rows_c, slots_c,
                                          reqs_c).collect()
 
+    @_on_stream
     def accept_reply_commit_self(self, rows, slots, bals, senders, acked
                                  ) -> Tuple[AcceptReplyRes, np.ndarray,
                                             np.ndarray]:
@@ -730,6 +809,7 @@ class ColumnarBackend(AcceptorBackend):
             np.where(newly, out[2], NO_BALLOT))
         return res, out[6] != 0, out[7] != 0
 
+    @_on_stream
     def propose_self(self, rows, req_ids, self_midx):
         """Fused propose + own accept + own vote (see
         ``kernels.propose_accept_self_packed``).  Returns (ProposeRes,
@@ -744,6 +824,7 @@ class ColumnarBackend(AcceptorBackend):
                         np.where(granted, out[3], NO_SLOT), out[4])
         return pr, out[5] != 0, out[6] != 0, out[7] != 0, out[8]
 
+    @_on_stream
     def propose_self_reply_submit(self, rows_p, reqs_p, self_midx,
                                   rows_r, slots_r, bals_r, senders_r,
                                   acked_r) -> EngineWave:
@@ -772,7 +853,7 @@ class ColumnarBackend(AcceptorBackend):
                 np.where(newly, r[4], 0),
                 np.where(newly, r[2], NO_BALLOT)), r[6] != 0, r[7] != 0)
             return pres, rres
-        return EngineWave(finish, np_ + nr)
+        return EngineWave(finish, np_ + nr, self._sfx)
 
     def propose_self_reply(self, rows_p, reqs_p, self_midx,
                            rows_r, slots_r, bals_r, senders_r, acked_r):
@@ -780,6 +861,7 @@ class ColumnarBackend(AcceptorBackend):
             rows_p, reqs_p, self_midx, rows_r, slots_r, bals_r,
             senders_r, acked_r).collect()
 
+    @_on_stream
     def prepare(self, rows, bals) -> PrepareRes:
         rows, bals = np.asarray(rows), np.asarray(bals)
         parts = []
@@ -805,6 +887,7 @@ class ColumnarBackend(AcceptorBackend):
                           tk(ws2, order, 1), tk(wb2, order, 1),
                           tk(wl2, order, 1), tk(wh2, order, 1))
 
+    @_on_stream
     def install_coordinator(self, rows, cbals, next_slots, carry_slot,
                             carry_req) -> None:
         rows, cbals = np.asarray(rows), np.asarray(cbals)
@@ -829,6 +912,7 @@ class ColumnarBackend(AcceptorBackend):
                 self._pad1(next_slots[a:bnd], 0), self._dev(cs),
                 self._dev(cl), self._dev(ch), self._valid(n))
 
+    @_on_stream
     def set_cursor(self, rows, cursors, next_slots) -> None:
         rows, cursors = np.asarray(rows), np.asarray(cursors)
         next_slots = np.asarray(next_slots)
@@ -838,15 +922,18 @@ class ColumnarBackend(AcceptorBackend):
                 self._pad1(cursors[a:b], 0),
                 self._pad1(next_slots[a:b], 0), self._valid(b - a))
 
+    @_on_stream
     def gc(self, rows, upto) -> None:
         rows, upto = np.asarray(rows), np.asarray(upto)
         for a, b in _chunks(len(rows)):
             kernels.gc(self.state, self._pad1(rows[a:b], 0),
                        self._pad1(upto[a:b], NO_SLOT), self._valid(b - a))
 
+    @_on_stream
     def cursor_of(self, row: int) -> int:
         return int(self.state.exec_cursor[row])
 
+    @_on_stream
     def inspect_rows(self, rows) -> Dict[str, np.ndarray]:
         """ONE stacked gather + ONE device->host transfer for the four
         scalar consensus planes."""
@@ -861,6 +948,7 @@ class ColumnarBackend(AcceptorBackend):
     def snapshot_row(self, row: int) -> dict:
         return self.snapshot_rows([row])[0]
 
+    @_on_stream
     def snapshot_rows(self, rows) -> List[dict]:
         """ONE gather + ONE device->host transfer for the whole sweep
         (fields in the JAX engine's dtypes)."""
@@ -868,6 +956,7 @@ class ColumnarBackend(AcceptorBackend):
             self.state, self._dev(np.asarray(rows, np.int64))))
         return [{f: host[f][i] for f in FIELDS} for i in range(len(rows))]
 
+    @_on_stream
     def restore_row(self, row: int, snap: dict) -> None:
         # coerce dtypes: snapshots may round-trip through JSON (pause
         # blobs), which turns u32 vote words / bool flags into int lists
@@ -885,6 +974,7 @@ class ColumnarBackend(AcceptorBackend):
 
     # -- slab accounting ---------------------------------------------------
 
+    @_on_stream
     def memory_info(self) -> dict:
         """Per-plane slab bytes from the tensors themselves, bytes/group,
         and — on a CUDA device — the allocator's bytes in use, the
@@ -916,9 +1006,73 @@ class ColumnarBackend(AcceptorBackend):
             out["max_groups_estimate"] = int(0.9 * limit / per_group)
         return out
 
+    @_on_stream
     def row_ownership(self) -> dict:
         n = int(self.state.active.sum())
         return {"rows_active": n, "mesh": [n]}
+
+    def kernel_costs(self) -> Dict[str, dict]:
+        """Bytes each hot wave moves at the warm (bucket-8) shape, from
+        the shapes alone (:func:`wave_bytes`), and ``flops`` null: the
+        waves are integer gathers and scatters, and torch has no
+        compiled program to cost-analyse (the reference reports XLA's
+        ``cost_analysis()`` here, and nulls where it has none).
+        Memoized; no device call."""
+        if self._kcosts is None:
+            b = _bucket(0)
+            self._kcosts = {
+                name: {"flops": None,
+                       "bytes_accessed": float(
+                           wave_bytes(name, b, self._window))}
+                for name in _WAVES}
+        return self._kcosts
+
+
+# The hot packed waves: the packed input and output rows of each (the
+# valid mask is the last input row) and the kernel bodies it runs, in
+# order (``ops/kernels.py``).
+_WAVES = {
+    "propose_p": ((4,), (5,), ("propose",)),
+    "accept_p": ((6,), (4,), ("accept",)),
+    "accept_reply_p": ((6,), (6,), ("accept_reply",)),
+    "commit_p": ((5,), (4,), ("commit",)),
+    "accept_commit_p": ((6, 5), (4, 4), ("accept", "commit")),
+    "request_reply_p": ((5, 6), (9, 9), ("propose", "accept",
+                                         "accept_reply", "accept_reply",
+                                         "commit")),
+}
+
+
+def _row_bytes(body: str, W: int) -> int:
+    """State bytes one live lane of a kernel body reads and writes on
+    its row, each word once (bool planes 1 B, int32 4 B, a window
+    column of ``acc``/``prop`` 16 B, of ``dec`` 12 B):
+
+    - propose: reads active, is_coord, coord_active, next_slot,
+      exec_cursor, cbal; writes next_slot and the ``prop`` column;
+    - accept: reads active, bal, exec_cursor; writes bal and the
+      ``acc`` column (the accept kernel's own count, ``chip_smoke``'s
+      ``accept_bytes``, with every lane raising and storing);
+    - accept_reply: reads is_coord, coord_active, cbal, members and
+      the ``prop`` column; writes the vote word, is_coord and
+      coord_active;
+    - commit: reads active, exec_cursor and the W slots of the row's
+      ``dec`` window (the contiguity scan); writes the ``dec`` column
+      and exec_cursor."""
+    return {"propose": (1 + 1 + 1 + 4 + 4 + 4) + (4 + 16),
+            "accept": (1 + 4 + 4) + (4 + 16),
+            "accept_reply": (1 + 1 + 4 + 4 + 16) + (4 + 1 + 1),
+            "commit": (1 + 4 + 4 * W) + (12 + 4)}[body]
+
+
+def wave_bytes(name: str, bucket: int, W: int) -> int:
+    """Bytes a packed wave moves at ``bucket`` lanes on a window-``W``
+    slab: its packed int32 inputs read once, its packed int32 outputs
+    written once, and each body's row traffic (:func:`_row_bytes`) for
+    every lane, one row a lane."""
+    ins, outs, bodies = _WAVES[name]
+    return 4 * bucket * (sum(ins) + sum(outs)) + \
+        bucket * sum(_row_bytes(b, W) for b in bodies)
 
 
 # plane grouping of the ColumnarState fields for the accounting view
@@ -931,3 +1085,418 @@ _PLANE_OF = {
     "active": "control", "members": "control", "version": "control",
     "is_coord": "control", "coord_active": "control",
 }
+
+
+# --------------------------------------------------------------------------
+# sharded columnar backend (row-partitioned engine lanes)
+# --------------------------------------------------------------------------
+
+
+class _MergedWave:
+    """Collectable handle over one in-flight wave per shard slab — the
+    sharded analog of :class:`EngineWave`.  ``collect()`` drains every
+    slab's wave and scatters the per-shard results back into input lane
+    order."""
+
+    __slots__ = ("_waves", "_merge")
+
+    def __init__(self, waves: List, merge: Callable):
+        self._waves = waves  # [(shard, idx, wave)]
+        self._merge = merge
+
+    def collect(self):
+        return self._merge([(k, idx, w.collect())
+                            for k, idx, w in self._waves])
+
+
+def _scatter_res(parts: List[Tuple[np.ndarray, tuple]], n: int):
+    """Merge per-shard result tuples (NamedTuple or plain tuple of
+    arrays, 1-D ``[B]`` or 2-D ``[B, W]``) back into input lane order.
+    ``parts`` is ``[(idx, res), ...]`` with ``idx`` the global lane
+    indices the shard served."""
+    first = parts[0][1]
+    fields = []
+    for fi in range(len(first)):
+        f0 = np.asarray(first[fi])
+        out = np.empty((n,) + f0.shape[1:], f0.dtype)
+        for idx, res in parts:
+            out[idx] = np.asarray(res[fi])
+        fields.append(out)
+    return type(first)(*fields) if hasattr(first, "_fields") \
+        else tuple(fields)
+
+
+class ShardedColumnarBackend(AcceptorBackend):
+    """S independent :class:`ColumnarBackend` slabs behind the single
+    ``AcceptorBackend`` SPI (PC.ENGINE_SHARDS; engine lanes).
+
+    Global row ``r`` lives in slab ``r % S`` at local row ``r // S`` —
+    the interleaved mapping matches ``GroupTable``'s per-shard free
+    lists, so a group (shard = ``gkey % S``) always resolves to its
+    shard's slab.  Every SPI call splits its lanes by shard, drives
+    each slab with local rows, and scatters results back into input
+    order; a lane-pure batch (the manager's per-lane workers only ever
+    send their own shard's rows) degenerates to one slab call with no
+    scatter.  Each slab owns a CUDA stream (``lane``), so the lanes'
+    waves queue and run side by side on the card; each slab's
+    profiler tags carry an ``@<shard>`` suffix next to the node-wide
+    base tags.  The reference's slab ``mesh`` has no counterpart: the
+    port's slabs are one device each (ROADMAP module 16).
+    """
+
+    def __init__(self, capacity: int, window: int = 16, shards: int = 2,
+                 device="cuda"):
+        if capacity % shards:
+            raise ValueError(
+                f"capacity {capacity} not divisible by shards {shards}")
+        self.capacity = capacity
+        self._window = window
+        self.shards = shards
+        self.slabs = [
+            ColumnarBackend(capacity // shards, window, device=device,
+                            prof_suffix=f"@{k}", lane=True)
+            for k in range(shards)]
+        self.engine_platform = self.slabs[0].engine_platform
+        self.engine_mesh = self.slabs[0].engine_mesh
+
+    @property
+    def window(self) -> int:
+        return self._window
+
+    # -- shard split helpers ----------------------------------------------
+
+    def _split(self, rows) -> List[Tuple[int, np.ndarray, np.ndarray]]:
+        """(shard, global lane idx, local rows) per shard present."""
+        rows = np.asarray(rows)
+        if not len(rows):
+            return []
+        sh = rows.astype(np.int64) % self.shards
+        lo = sh.min()
+        if lo == sh.max():  # lane-pure batch (the per-lane worker path)
+            return [(int(lo), np.arange(len(rows)),
+                     (rows // self.shards).astype(np.int32))]
+        out = []
+        for k in range(self.shards):
+            idx = np.flatnonzero(sh == k)
+            if len(idx):
+                out.append((k, idx,
+                            (rows[idx] // self.shards).astype(np.int32)))
+        return out
+
+    @staticmethod
+    def _cols_at(cols: tuple, idx: np.ndarray, n: int) -> list:
+        """Slice the batch columns down to one shard's lanes — skipping
+        the fancy-index copy on a lane-pure batch (idx is the identity
+        there)."""
+        if len(idx) == n:
+            return [np.asarray(c) for c in cols]
+        return [np.asarray(c)[idx] for c in cols]
+
+    def _fan1(self, op: str, rows, cols: tuple):
+        """Split-call-merge for single-input ops whose slab method takes
+        ``(local_rows, *cols)`` and returns a result tuple aligned to
+        its lanes."""
+        rows = np.asarray(rows)
+        n = len(rows)
+        parts = []
+        for k, idx, local in self._split(rows):
+            args = self._cols_at(cols, idx, n)
+            parts.append((idx, getattr(self.slabs[k], op)(local, *args)))
+        if not parts:
+            # keep the result structure for empty input (slab handles
+            # zero-length arrays)
+            return getattr(self.slabs[0], op)(
+                rows.astype(np.int32), *[np.asarray(c) for c in cols])
+        if len(parts) == 1 and len(parts[0][0]) == n:
+            return parts[0][1]
+        return _scatter_res(parts, n)
+
+    # -- SPI ---------------------------------------------------------------
+
+    def create(self, rows, members, versions, init_bal, self_coord):
+        for k, idx, local in self._split(rows):
+            self.slabs[k].create(local, np.asarray(members)[idx],
+                                 np.asarray(versions)[idx],
+                                 np.asarray(init_bal)[idx],
+                                 np.asarray(self_coord)[idx])
+
+    def delete(self, rows):
+        for k, _idx, local in self._split(rows):
+            self.slabs[k].delete(local)
+
+    def accept(self, rows, slots, bals, req_ids) -> AcceptRes:
+        return self._fan1("accept", rows, (slots, bals, req_ids))
+
+    def accept_submit(self, rows, slots, bals, req_ids):
+        return self._submit_fan("accept_submit", rows,
+                                (slots, bals, req_ids))
+
+    def accept_reply(self, rows, slots, bals, senders, acked
+                     ) -> AcceptReplyRes:
+        return self._fan1("accept_reply", rows,
+                          (slots, bals, senders, acked))
+
+    def accept_reply_submit(self, rows, slots, bals, senders, acked):
+        return self._submit_fan("accept_reply_submit", rows,
+                                (slots, bals, senders, acked))
+
+    def propose(self, rows, req_ids) -> ProposeRes:
+        return self._fan1("propose", rows, (req_ids,))
+
+    def commit(self, rows, slots, req_ids) -> CommitRes:
+        return self._fan1("commit", rows, (slots, req_ids))
+
+    def commit_submit(self, rows, slots, req_ids):
+        return self._submit_fan("commit_submit", rows, (slots, req_ids))
+
+    def prepare(self, rows, bals) -> PrepareRes:
+        return self._fan1("prepare", rows, (bals,))
+
+    def _submit_fan(self, op: str, rows, cols: tuple) -> _MergedWave:
+        """Submit one wave per shard present (all launched before any
+        collect — the cross-slab overlap), merged at collect()."""
+        rows = np.asarray(rows)
+        n = len(rows)
+        waves = []
+        for k, idx, local in self._split(rows):
+            args = self._cols_at(cols, idx, n)
+            waves.append((k, idx, getattr(self.slabs[k], op)(local,
+                                                             *args)))
+        if not waves:
+            waves = [(0, np.arange(0),
+                      getattr(self.slabs[0], op)(
+                          rows.astype(np.int32),
+                          *[np.asarray(c) for c in cols]))]
+
+        def merge(done):
+            if len(done) == 1 and len(done[0][1]) == n:
+                return done[0][2]
+            return _scatter_res([(idx, res) for _k, idx, res in done], n)
+        return _MergedWave(waves, merge)
+
+    def propose_self(self, rows, req_ids, self_midx):
+        rows = np.asarray(rows)
+        n = len(rows)
+        parts = []
+        for k, idx, local in self._split(rows):
+            reqs_k, midx_k = self._cols_at((req_ids, self_midx), idx, n)
+            pr, sa, sn, sp, sc = self.slabs[k].propose_self(
+                local, reqs_k, midx_k)
+            parts.append((idx, tuple(pr) + (sa, sn, sp, sc)))
+        if not parts:
+            return self.slabs[0].propose_self(
+                rows.astype(np.int32), np.asarray(req_ids),
+                np.asarray(self_midx))
+        if len(parts) == 1 and len(parts[0][0]) == n:
+            flat = parts[0][1]
+        else:
+            flat = _scatter_res(parts, n)
+        return (ProposeRes(*flat[:5]), flat[5], flat[6], flat[7],
+                flat[8])
+
+    def accept_reply_commit_self(self, rows, slots, bals, senders,
+                                 acked):
+        rows = np.asarray(rows)
+        n = len(rows)
+        parts = []
+        for k, idx, local in self._split(rows):
+            sl_k, b_k, sd_k, ak_k = self._cols_at(
+                (slots, bals, senders, acked), idx, n)
+            res, app, st = self.slabs[k].accept_reply_commit_self(
+                local, sl_k, b_k, sd_k, ak_k)
+            parts.append((idx, tuple(res) + (app, st)))
+        if not parts:
+            return self.slabs[0].accept_reply_commit_self(
+                rows.astype(np.int32), np.asarray(slots),
+                np.asarray(bals), np.asarray(senders),
+                np.asarray(acked))
+        if len(parts) == 1 and len(parts[0][0]) == n:
+            flat = parts[0][1]
+        else:
+            flat = _scatter_res(parts, n)
+        return AcceptReplyRes(*flat[:5]), flat[5], flat[6]
+
+    def accept_commit_submit(self, rows_a, slots_a, bals_a, reqs_a,
+                             rows_c, slots_c, reqs_c) -> _MergedWave:
+        """Fused acceptor wave across slabs: each shard present in
+        EITHER half gets ONE slab dispatch covering its share of both
+        (empty halves ride along as zero-lane inputs, preserving the
+        slab's accepts-then-commits ordering)."""
+        rows_a, rows_c = np.asarray(rows_a), np.asarray(rows_c)
+        na, nc = len(rows_a), len(rows_c)
+        pa = {k: (idx, local) for k, idx, local in self._split(rows_a)}
+        pc = {k: (idx, local) for k, idx, local in self._split(rows_c)}
+        e_i, e_r = np.arange(0), np.zeros(0, np.int32)
+        waves = []
+        for k in sorted(set(pa) | set(pc)) or [0]:
+            ai, al = pa.get(k, (e_i, e_r))
+            ci, cl = pc.get(k, (e_i, e_r))
+            sa_k, ba_k, ra_k = self._cols_at((slots_a, bals_a, reqs_a),
+                                             ai, na)
+            sc_k, rc_k = self._cols_at((slots_c, reqs_c), ci, nc)
+            w = self.slabs[k].accept_commit_submit(
+                al, sa_k, ba_k, ra_k, cl, sc_k, rc_k)
+            waves.append((k, (ai, ci), w))
+
+        def merge(done):
+            if len(done) == 1:
+                ai, ci = done[0][1]
+                if len(ai) == na and len(ci) == nc:
+                    return done[0][2]  # lane-pure: no scatter needed
+            a_parts = [(ai, res[0]) for (_k, (ai, _ci), res) in done
+                       if len(ai)]
+            c_parts = [(ci, res[1]) for (_k, (_ai, ci), res) in done
+                       if len(ci)]
+            ares = _scatter_res(a_parts, na) if a_parts \
+                else done[0][2][0]
+            cres = _scatter_res(c_parts, nc) if c_parts \
+                else done[0][2][1]
+            return ares, cres
+        return _MergedWave(waves, merge)
+
+    def accept_commit(self, rows_a, slots_a, bals_a, reqs_a,
+                      rows_c, slots_c, reqs_c):
+        return self.accept_commit_submit(
+            rows_a, slots_a, bals_a, reqs_a, rows_c, slots_c,
+            reqs_c).collect()
+
+    def propose_self_reply_submit(self, rows_p, reqs_p, self_midx,
+                                  rows_r, slots_r, bals_r, senders_r,
+                                  acked_r) -> _MergedWave:
+        rows_p, rows_r = np.asarray(rows_p), np.asarray(rows_r)
+        n_p, n_r = len(rows_p), len(rows_r)
+        pp = {k: (idx, local) for k, idx, local in self._split(rows_p)}
+        pr = {k: (idx, local) for k, idx, local in self._split(rows_r)}
+        e_i, e_r = np.arange(0), np.zeros(0, np.int32)
+        waves = []
+        for k in sorted(set(pp) | set(pr)) or [0]:
+            pi, pl = pp.get(k, (e_i, e_r))
+            ri, rl = pr.get(k, (e_i, e_r))
+            rq_k, mi_k = self._cols_at((reqs_p, self_midx), pi, n_p)
+            sr_k, br_k, se_k, ak_k = self._cols_at(
+                (slots_r, bals_r, senders_r, acked_r), ri, n_r)
+            w = self.slabs[k].propose_self_reply_submit(
+                pl, rq_k, mi_k, rl, sr_k, br_k, se_k, ak_k)
+            waves.append((k, (pi, ri), w))
+
+        def merge(done):
+            if len(done) == 1:
+                pi, ri = done[0][1]
+                if len(pi) == n_p and len(ri) == n_r:
+                    return done[0][2]  # lane-pure: no scatter needed
+            p_parts = [(pi, tuple(res[0][0]) + tuple(res[0][1:]))
+                       for (_k, (pi, _ri), res) in done if len(pi)]
+            r_parts = [(ri, tuple(res[1][0]) + tuple(res[1][1:]))
+                       for (_k, (_pi, ri), res) in done if len(ri)]
+            if p_parts:
+                pf = _scatter_res(p_parts, n_p)
+                pres = (ProposeRes(*pf[:5]), pf[5], pf[6], pf[7], pf[8])
+            else:
+                pres = done[0][2][0]
+            if r_parts:
+                rf = _scatter_res(r_parts, n_r)
+                rres = (AcceptReplyRes(*rf[:5]), rf[5], rf[6])
+            else:
+                rres = done[0][2][1]
+            return pres, rres
+        return _MergedWave(waves, merge)
+
+    def propose_self_reply(self, rows_p, reqs_p, self_midx,
+                           rows_r, slots_r, bals_r, senders_r, acked_r):
+        return self.propose_self_reply_submit(
+            rows_p, reqs_p, self_midx, rows_r, slots_r, bals_r,
+            senders_r, acked_r).collect()
+
+    def install_coordinator(self, rows, cbals, next_slots, carry_slot,
+                            carry_req) -> None:
+        for k, idx, local in self._split(rows):
+            self.slabs[k].install_coordinator(
+                local, np.asarray(cbals)[idx],
+                np.asarray(next_slots)[idx],
+                np.asarray(carry_slot)[idx],
+                np.asarray(carry_req)[idx])
+
+    def set_cursor(self, rows, cursors, next_slots) -> None:
+        for k, idx, local in self._split(rows):
+            self.slabs[k].set_cursor(local, np.asarray(cursors)[idx],
+                                     np.asarray(next_slots)[idx])
+
+    def gc(self, rows, upto) -> None:
+        for k, idx, local in self._split(rows):
+            self.slabs[k].gc(local, np.asarray(upto)[idx])
+
+    def cursor_of(self, row: int) -> int:
+        return self.slabs[row % self.shards].cursor_of(
+            row // self.shards)
+
+    def inspect_rows(self, rows) -> Dict[str, np.ndarray]:
+        rows = np.asarray(rows)
+        out = {k: np.zeros(len(rows), np.int64)
+               for k in ("bal", "cbal", "next_slot", "exec_cursor")}
+        for k, idx, local in self._split(rows):
+            part = self.slabs[k].inspect_rows(local)
+            for f, arr in part.items():
+                out[f][idx] = arr
+        return out
+
+    def snapshot_row(self, row: int) -> dict:
+        return self.slabs[row % self.shards].snapshot_row(
+            row // self.shards)
+
+    def snapshot_rows(self, rows) -> List[dict]:
+        rows = np.asarray(rows)
+        out: List[Optional[dict]] = [None] * len(rows)
+        for k, idx, local in self._split(rows):
+            for i, snap in zip(idx.tolist(),
+                               self.slabs[k].snapshot_rows(local)):
+                out[i] = snap
+        return out
+
+    def restore_row(self, row: int, snap: dict) -> None:
+        self.slabs[row % self.shards].restore_row(row // self.shards,
+                                                  snap)
+
+    # -- flight deck: aggregate the slabs ---------------------------------
+
+    def memory_info(self) -> dict:
+        """Sum of the slabs' accounting, with a per-shard breakdown —
+        ``bytes_per_group`` stays the whole-engine ratio (total bytes /
+        global capacity), so the capacity math is shard-invariant."""
+        per = [s.memory_info() for s in self.slabs]
+        planes: Dict[str, int] = {}
+        for p in per:
+            for name, nb in p["planes"].items():
+                planes[name] = planes.get(name, 0) + nb
+        total = sum(p["total_bytes"] for p in per)
+        out: dict = {
+            "planes": planes,
+            "total_bytes": total,
+            "capacity": self.capacity,
+            "window": self._window,
+            "bytes_per_group": total / float(self.capacity),
+            "mesh": per[0]["mesh"],
+            "platform": self.engine_platform,
+            "engine_shards": self.shards,
+            "per_shard": [{"total_bytes": p["total_bytes"],
+                           "capacity": p["capacity"]} for p in per],
+        }
+        ests = [p["max_groups_estimate"] for p in per
+                if "max_groups_estimate" in p]
+        if ests:
+            # the slabs share one device: each slab's estimate is already
+            # the groups the whole device holds at this bytes/group (the
+            # reference multiplies it by the shard count, S times over)
+            out["max_groups_estimate"] = min(ests)
+        return out
+
+    def row_ownership(self) -> dict:
+        per = [s.row_ownership() for s in self.slabs]
+        return {
+            "rows_active": sum(p["rows_active"] for p in per),
+            "shards": [p["rows_active"] for p in per],
+            "mesh": per[0]["mesh"],
+        }
+
+    def kernel_costs(self) -> Dict[str, dict]:
+        # the slabs share one window and ladder: slab 0 speaks for all
+        return self.slabs[0].kernel_costs()

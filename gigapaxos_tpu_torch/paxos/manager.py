@@ -27,10 +27,12 @@ The port's own copy of ``gigapaxos_tpu/paxos/manager.py``.  It departs
 from the reference only where the port differs: the columnar engine is
 the port's ``ColumnarBackend`` on ``PC.COLUMNAR_DEVICE`` (``"cuda"``
 unless the caller asks for the CPU), and each option whose module is not
-ported yet — the native engine, engine lanes (``ENGINE_SHARDS > 1``), a
-device mesh (``ENGINE_MESH > 1``), the lock witness (``LOCK_WITNESS``)
-and the stats listener (``STATS_PORT >= 0``) — raises
-``NotImplementedError`` at construction instead of running without it.
+ported yet — the native engine, a device mesh (``ENGINE_MESH > 1``)
+and the lock witness (``LOCK_WITNESS``) — raises ``NotImplementedError``
+at construction instead of running without it.  Engine lanes
+(``ENGINE_SHARDS > 1``) run on the port's ``ShardedColumnarBackend``,
+one slab and one CUDA stream a lane, and the decode thread hands each
+lane one sub-batch at a time (``_worker_loop_sharded``).
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ from gigapaxos_tpu_torch.ops.types import (NODE_BITS, NODE_MASK, NO_BALLOT,
                                            unpack_ballot)
 from gigapaxos_tpu_torch.paxos import packets as pkt
 from gigapaxos_tpu_torch.paxos.backend import (AcceptorBackend,
-                                               ColumnarBackend, ScalarBackend)
+                                               ColumnarBackend, ScalarBackend,
+                                               ShardedColumnarBackend)
 from gigapaxos_tpu_torch.paxos.grouptable import GroupTable
 from gigapaxos_tpu_torch.paxos.interfaces import Replicable
 from gigapaxos_tpu_torch.paxos.logger import (CheckpointRec, LogEntry,
@@ -298,15 +301,10 @@ def _refuse_unported(bk: str) -> None:
     refused = [
         (bk == "native", "backend='native' (the C++ per-instance engine, "
          "NativeBackend; ROADMAP module 6)"),
-        (int(Config.get(PC.ENGINE_SHARDS)) > 1,
-         "ENGINE_SHARDS > 1 (engine lanes, ShardedColumnarBackend; "
-         "ROADMAP module 9)"),
         (mesh not in ("auto", "off") and int(mesh) > 1,
          "ENGINE_MESH > 1 (a device mesh; ROADMAP module 16)"),
         (bool(Config.get(PC.LOCK_WITNESS)),
          "LOCK_WITNESS (the runtime lock witness; ROADMAP module 15)"),
-        (int(Config.get(PC.STATS_PORT)) >= 0,
-         "STATS_PORT >= 0 (the stats listener; ROADMAP module 10)"),
     ]
     for hit, what in refused:
         if hit:
@@ -333,12 +331,26 @@ class PaxosNode:
         win = window or Config.get(PC.WINDOW)
         bk = backend or Config.get(PC.BACKEND)
         _refuse_unported(bk)
-        # row-sharded engine lanes (PC.ENGINE_SHARDS) are not ported:
-        # one lane, one worker, one WAL segment
-        self.shards = 1
+        # row-sharded engine lanes (PC.ENGINE_SHARDS; the multi-core
+        # scale-up tentpole): shard = gkey % S, each lane owning a slab
+        # of cap/S rows on its own CUDA stream, its own worker, and its
+        # own WAL segment.  Columnar-only: the scalar engine is a single
+        # store with no per-shard state to parallelize.
+        self.shards = max(1, int(Config.get(PC.ENGINE_SHARDS)))
+        if self.shards > 1 and (bk != "columnar"
+                                or cap % self.shards != 0):
+            log.warning(
+                "ENGINE_SHARDS=%d needs the columnar backend and "
+                "capacity %% shards == 0 (backend=%s capacity=%d); "
+                "running single-lane", self.shards, bk, cap)
+            self.shards = 1
         if bk == "columnar":
-            self.backend: AcceptorBackend = ColumnarBackend(
-                cap, win, device=Config.get(PC.COLUMNAR_DEVICE))
+            dev = Config.get(PC.COLUMNAR_DEVICE)
+            if self.shards > 1:
+                self.backend: AcceptorBackend = ShardedColumnarBackend(
+                    cap, win, self.shards, device=dev)
+            else:
+                self.backend = ColumnarBackend(cap, win, device=dev)
         else:
             self.backend = ScalarBackend(win)
         # the native engine's fused C stage handlers: the native engine
@@ -350,7 +362,9 @@ class PaxosNode:
         # which on a remote accelerator is two fewer link round trips.
         # The sharded facade exposes the same fused surface per slab.
         self._col_self = self.backend \
-            if isinstance(self.backend, ColumnarBackend) else None
+            if isinstance(self.backend, (ColumnarBackend,
+                                         ShardedColumnarBackend)) \
+            else None
         # whole-wave fusion (accepts+commits, requests+replies — one
         # engine dispatch per node per wave): "auto" fuses when the
         # engine runs on a CUDA device, where every dispatch pays its
@@ -584,6 +598,8 @@ class PaxosNode:
         self._worker_thread: Optional[threading.Thread] = None
         self._loop = None
         self._started = threading.Event()
+        # per-node stats listener (PC.STATS_PORT; started on the loop)
+        self.stats_http = None
 
         # ---- tick/transfer state, eagerly initialized (was lazy
         # getattr(self, ..., 0) scattered through the tick path — one
@@ -773,10 +789,31 @@ class PaxosNode:
             self._loop = asyncio.new_event_loop()
             asyncio.set_event_loop(self._loop)
             self._loop.run_until_complete(self.transport.start())
+            sport = int(Config.get(PC.STATS_PORT))
+            if sport >= 0:
+                # per-node observability listener: every server process
+                # is scrapeable (GET /metrics Prometheus text, /stats
+                # JSON) without the full HTTP gateway.  Best-effort: a
+                # bind failure (fixed port + two roles in one process)
+                # must never take the consensus loop down with it.
+                from gigapaxos_tpu_torch.net.statshttp import StatsListener
+                try:
+                    self.stats_http = StatsListener(
+                        self.metrics, ("127.0.0.1", sport),
+                        extra_routes=self._obs_route,
+                        health_fn=self.logger.impaired)
+                    self._loop.run_until_complete(
+                        self.stats_http.start())
+                except OSError as exc:
+                    log.warning("node %d: stats listener on port %d "
+                                "unavailable: %s", self.id, sport, exc)
+                    self.stats_http = None
             self._ping_task = self._loop.create_task(self._ping_loop())
             self._started.set()
             self._loop.run_forever()
             # drain cancellations after stop()
+            if self.stats_http is not None:
+                self._loop.run_until_complete(self.stats_http.stop())
             self._loop.run_until_complete(self.transport.stop())
             self._loop.close()
 
@@ -1730,7 +1767,13 @@ class PaxosNode:
         row state, and the WAL-fsync-before-reply barrier are per-lane
         invariants exactly as they were node-wide with one worker."""
         S = self.shards
-        procqs = [queue_mod.Queue(maxsize=4) for _ in range(S)]
+        # one sub-batch waits a lane (the reference queues four): a
+        # torch wave costs milliseconds of host time whatever its size,
+        # so a decode thread that runs four sub-batches ahead cuts the
+        # socket's backlog into about four times as many small waves;
+        # held back at one, it takes the backlog whole into the next
+        # decode batch (PERF.md §5, the lanes phase)
+        procqs = [queue_mod.Queue(maxsize=1) for _ in range(S)]
         threads: List[threading.Thread] = []
 
         def emit_loop(emitq) -> None:
@@ -1859,7 +1902,7 @@ class PaxosNode:
                 t0 = time.monotonic()
                 for k in range(S):
                     if lanes[k]:
-                        # blocking at depth 4: backpressure reaches the
+                        # blocking at depth 1: backpressure reaches the
                         # socket exactly as the single lane's did
                         procqs[k].put((wid, ts, lanes[k]))
                 DelayProfiler.update_total("w.decode_blocked", t0)
@@ -2604,10 +2647,10 @@ class PaxosNode:
         }
 
     def engine_kernels(self) -> dict:
-        """``GET /engine/kernels``: per-kernel ledger rows (compiles /
-        retraces / compile seconds) joined with the compiled-HLO cost
-        analysis (flops, bytes accessed).  The cost sweep lowers under
-        the engine locks — it reads the live state refs."""
+        """``GET /engine/kernels``: the ledger's rows, one per built
+        library (builds / compile seconds / loads), joined with the hot
+        waves' costs (bytes accessed from the shapes; flops null).
+        Read under the engine locks, as the reference's cost sweep."""
         with contextlib.ExitStack() as stack:
             for lk in self._locks_for(range(self.shards)):
                 stack.enter_context(lk)
@@ -2708,6 +2751,15 @@ class PaxosNode:
             d["next_slot"] = int(dev["next_slot"][j])
             d["exec_cursor"] = int(dev["exec_cursor"][j])
         return d
+
+    def _obs_route(self, path: str):
+        """Introspection routes for the per-node stats listener."""
+        from gigapaxos_tpu_torch.net.statshttp import observability_routes
+        return observability_routes(path, groups_fn=self.groups_info,
+                                    group_fn=self.group_info,
+                                    blackbox=self.blackbox,
+                                    engine_fn=self.engine_info,
+                                    engine_kernels_fn=self.engine_kernels)
 
     def stats(self) -> str:
         """One-line node counters (ref: the reference's periodic

@@ -1,9 +1,10 @@
 """The port's flight recorder (``gigapaxos_tpu_torch.blackbox``) against
 the JAX package's: the ``.gpbb`` bytes either writer produces, each
 package reading the other's files, and captures replayed across the
-packages — the committed ``reference.gpbb`` and ``failover_ref.gpbb``
-(both written by the JAX package) on the port, ``record-demo`` output
-both ways, every node's dump of a 3-node port cluster under chaos delay
+packages — the committed ``reference.gpbb``, ``failover_ref.gpbb`` and
+``lanes_ref.gpbb`` (all written by the JAX package, the last with four
+engine lanes) on the port, ``record-demo`` output both ways, at one
+lane and at four, every node's dump of a 3-node port cluster under chaos delay
 and reorder in both packages, and a coordinator takeover recorded live
 in each package and replayed in the other.  Every replay must give
 ``MATCH``: per-wave lane digests, per-group app digests and counts, and
@@ -37,6 +38,12 @@ from tests.conftest import tscale
 DATA = os.path.join(os.path.dirname(__file__), "data")
 REFERENCE = os.path.join(DATA, "reference.gpbb")
 FAILOVER_REF = os.path.join(DATA, "failover_ref.gpbb")
+# written by the JAX package with four engine lanes, from the
+# repository's root:
+#   JAX_PLATFORMS=cpu python -m gigapaxos_tpu.blackbox record-demo \
+#       --shards 4 --groups 16 --requests 96 --out tests/data/lanes_ref.gpbb
+# (16 groups put traffic on every lane)
+LANES_REF = os.path.join(DATA, "lanes_ref.gpbb")
 # the takeover: groups all led by node 0, requests before and after its
 # death, and the failure detection (ping interval, failure timeout) the
 # capture is recorded and replayed under
@@ -315,16 +322,40 @@ def test_record_demo_replays_in_the_other_package(tmp_path, writer):
 
 
 @pytest.mark.parametrize("argv", [
-    ["replay", REFERENCE, "--mesh", "2"],
-    ["record-demo", "--out", "x.gpbb", "--shards", "2"]],
-    ids=["replay-mesh-2", "record-demo-shards-2"])
+    ["replay", REFERENCE, "--mesh", "2"]],
+    ids=["replay-mesh-2"])
 def test_unported_replay_options_raise(tmp_path, argv):
-    """A mesh above one device (module 16) and engine lanes (module 9)
-    raise instead of running on one device."""
+    """A mesh above one device (module 16) raises instead of running on
+    one device."""
     Config.set(PC.COLUMNAR_DEVICE, "cpu")
-    argv = [str(tmp_path / a) if a == "x.gpbb" else a for a in argv]
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(argv)
+
+
+def test_lanes_reference_replays_match_on_port():
+    """The committed JAX-written capture of four engine lanes, every lane
+    with traffic, replays MATCH through a 4-lane port node."""
+    records, manifest = tcap.read_capture(LANES_REF)
+    assert manifest["knobs"]["engine_shards"] == 4
+    assert {r["lane"] for r in records if r["t"] == "W"} == {0, 1, 2, 3}
+    assert_match(replay("port", LANES_REF), 16)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_port_lane_capture_replays_match_in_jax(tmp_path, shards):
+    """``record-demo --shards S`` runs on the port, and its capture
+    replays MATCH in the JAX package and in the port."""
+    out = str(tmp_path / "lanes.gpbb")
+    Config.set(PC.COLUMNAR_DEVICE, "cpu")
+    assert main(["record-demo", "--out", out, "--shards", str(shards),
+                 "--groups", "16", "--requests", "64"]) == 0
+    assert tcap.read_capture(out)[1]["knobs"]["engine_shards"] == shards
+    undo = _pinned(JConfig, [(JPC.ENGINE_MESH, "off")])
+    try:
+        assert_match(replay("jax", out), 16)
+    finally:
+        undo()
+    assert_match(replay("port", out), 16)
 
 
 @pytest.fixture(scope="module")

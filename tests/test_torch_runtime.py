@@ -291,10 +291,8 @@ def test_retransmit_in_one_batch_takes_one_slot(tmp_path):
 
 @pytest.mark.parametrize("knob,value,backend", [
     (None, None, "native"),
-    (PC.ENGINE_SHARDS, 2, "columnar"),
     (PC.ENGINE_MESH, 2, "columnar"),
     (PC.ENGINE_MESH, "2", "columnar"),
-    (PC.STATS_PORT, 0, "columnar"),
     (PC.LOCK_WITNESS, True, "columnar"),
 ])
 def test_unported_options_raise(tmp_path, knob, value, backend):
