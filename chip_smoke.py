@@ -19,9 +19,18 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    ``ColumnarBackend`` pads a wave, and on the storm's lanes —
    ``bal``, ``acc`` and all four output rows must be bit-identical;
    times per call (the storm's lanes also with L2 cold) and the byte
-   bound; then storm steps and SPI waves at a small size on the card against
-   the same calls on the CPU (the plain path the CPU tests hold against
-   the JAX package) — every result and state plane equal; and
+   bound; the runtime's two wave kernels (``wave.cu``: the acceptor wave,
+   accept then commit; the coordinator wave, propose, own accept and own
+   vote, then the replies' votes and own commit) against their torch
+   bodies on phase 5's and phase 8's slabs at every bucket over several
+   seeds, with both halves and with each half alone, and on 4096 lanes
+   on 64 rows — every state plane and every live output lane
+   bit-identical — with device times and the byte bound
+   (``backend.wave_bytes``), and one fused wave of each submitted under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); then
+   storm steps and SPI waves at a small size on the card against the
+   same calls on the CPU (the plain path the CPU tests hold against the
+   JAX package) — every result and state plane equal; and
    ``prepare`` and ``install_coordinator`` (torch-op bodies, the
    takeover's phase 1) on the card against the CPU on phase 5's slab at
    every bucket, then one ``ColumnarBackend.prepare`` of 33,334 rows
@@ -36,12 +45,15 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    B = 16384 lanes a wave (four 4096-lane chunks), plus fused
    ``accept_commit_submit``/``collect`` waves — every granted request is
    decided exactly once;
-5. the node runtime, the repo's config 2 (``bench.py``: ``throughput
+5. the node runtime, every fused wave one wave-kernel launch a chunk,
+   the repo's config 2 (``bench.py``: ``throughput
    --backend columnar --groups 100000 --capacity 131072 --requests 4000
    --concurrency 448 --pipeline``): three ``PaxosNode``s in this process
    on loopback sockets, each on its own ``ColumnarBackend(2**17, 16)``
    on the card, 100,000 groups of 3 members, ``CounterApp``, the
-   pipelined worker and fused waves; 4000 client requests through
+   pipelined worker and fused waves, failure detection (3 s) and the
+   congestion guard at the package defaults, the deactivator off; 4000
+   client requests through
    ``PaxosEmulation.run_load_fast`` at depth 448 — every request answered
    with status 0, the replicas' counts, digests and ``exec_cursor`` in
    agreement, the host C++ hot path loaded (never its Python fallback),
@@ -55,16 +67,17 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    on the card within 120 s, then 2000 more requests through the
    survivors — every request answered with status 0, the survivors'
    counts, digests and ``exec_cursor`` in agreement, the sampled takeover
-   rows led by node 1, the accept kernel launched after the kill;
+   rows led by node 1, a wave kernel launched after the kill;
 7. replay on the card: ``tests/data/reference.gpbb``,
    ``tests/data/failover_ref.gpbb`` and ``tests/data/lanes_ref.gpbb``
    (all written by the JAX package, the second a takeover, the third
    four engine lanes) and node 1's capture from phase 6 (100,000
    groups, nothing evicted, the takeover's prepare waves verified) each
-   replay ``MATCH`` through the port's node, with the accept kernel
+   replay ``MATCH`` through the port's node, with a wave kernel
    launched in each;
 8. config 2 at four engine lanes (``ENGINE_SHARDS=4``, ``bench.py``'s
-   ``min(4, cpus)``): phase 5's cluster, pins and load with every node's
+   ``min(4, cpus)``): phase 5's cluster and load, failure detection at
+   300 s and the congestion guard off, with every node's
    2^17 rows in four 2^15-row slabs, each on a CUDA stream of its own,
    and every node's stats listener on (``STATS_PORT=0``) — every request
    answered with status 0, the replicas in agreement, four WAL segments
@@ -74,8 +87,12 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    phase 5's, a valid exposition) and their cluster merge (every node
    up);
 9. the kernels' launch counters, reset just before each of phases 3 to
-   8 and read just after, must show that those paths went through every
-   kernel.
+   8 and read just after, must show that those paths went through their
+   kernels: exact counts of the accept kernel and of no wave kernel in
+   the storm (it keeps its torch bodies), of the accept kernel (plain
+   accept waves) and the acceptor wave kernel (commits and fused acceptor
+   waves) in the SPI phase, each wave kernel at least once in phases 5
+   and 8, and one of them at least after the kill and in each replay.
 
 It prints one JSON line listing every kernel (route, source, the TPU
 kernel it replaces, launches on the main path, error against the plain
@@ -89,7 +106,12 @@ Run: ``python3 chip_smoke.py`` from the root of the repo, on one card.
 card or on its host's CPU (the same drive, no kernel), to tell the host's
 share of the runtime's time from the card's.  ``--failover-only`` runs
 phases 6 and 7 alone; ``--lanes-only`` runs phases 5 and 8 alone, one
-lane against four.
+lane against four.  ``--defaults`` runs phases 5 and 8 with failure
+detection and the congestion guard at the package defaults (phase 8
+pins them otherwise; the deactivator stays off) and reports what they
+did (answers, elections, sheds, agreement) rather than failing on it.
+``--lanes-ab`` runs phase 8 with and without each of the lanes' launch
+lock and one-sub-batch queue, between two runs of phase 5.
 """
 
 from __future__ import annotations
@@ -112,24 +134,12 @@ STORM_B, STORM_STEPS = 1 << 18, 4
 SPI_B, SPI_ITERS, SPI_FUSED_ITERS = 16384, 10, 2
 # phase 5: bench.py's config 2 (3 replicas, 100K groups, capacity 2^17)
 RT_NODES, RT_GROUPS, RT_CAPACITY, RT_WINDOW = 3, 100_000, 1 << 17, 16
-# the load's time limit, about two minutes: at depth 448 the card's host
-# runs the runtime past its knee (PERF.md §5), and every request must
-# still be answered within it
+# the load's time limit, about two minutes; every request must be
+# answered within it.  Failure detection (3 s) and the congestion guard
+# (PC.INTAKE_BACKLOG_LIMIT, 2048) run at the package defaults: a live
+# peer suspected, or a request shed ("retry", which the load generator
+# counts as an error), fails the phase
 RT_REQUESTS, RT_DEPTH, RT_TIMEOUT_S = 4000, 448, 120.0
-# failure detection for the phase's span.  At the default 3 s a node on
-# the card's host declares a LIVE peer dead when that peer's pings wait
-# in its worker's backlog behind seconds of queued waves, and the mass
-# election over 100,000 groups that follows is then what the run
-# measures (PERF.md §5).  The phase measures the decide path, so no
-# peer is suspected within it.
-RT_FAILURE_TIMEOUT_S = 300.0
-# the congestion shed (PC.INTAKE_BACKLOG_LIMIT) answers a share of fresh
-# requests "retry" (status 1) once a node's inbound backlog passes half
-# the limit; at depth 448 on the card's host it does (PERF.md §5), and
-# the load generator counts a shed request as an error.  Off for the
-# phase, as the reference's pipelined e2e test sets it: the phase holds
-# every request to an answer with status 0.
-RT_BACKLOG_LIMIT = 0
 # the deactivator (PC.PAUSE_IDLE_S, 60 s) pauses a group idle that long:
 # its state leaves the slab and the app (CounterApp.restore(name, b""))
 # for the pause table.  On a slow host a group answered early in the
@@ -139,7 +149,10 @@ RT_BACKLOG_LIMIT = 0
 # group's count, digest and exec_cursor off the app and the slab
 RT_PAUSE_IDLE_S = 0.0
 # phase 6: config 2 loses its coordinator.  Failure detection runs at
-# the defaults.  The deactivator is off: a group idle for PAUSE_IDLE_S
+# the defaults, the congestion guard is off (the survivors take the dead
+# node's clients' retransmits; the phase holds every request to an
+# answer with status 0, as the reference's pipelined e2e test sets the
+# guard).  The deactivator is off: a group idle for PAUSE_IDLE_S
 # leaves the slab (its state then lives in the pause table, held by
 # tests/test_torch_failover.py and phase 2's row checks), and the phase
 # reads every group's state off the slab.  These tick-driven settings
@@ -149,9 +162,17 @@ FO_REQUESTS, FO_DEPTH, FO_TIMEOUT_S = 2000, 64, 120.0
 FO_KNOBS = {"PING_INTERVAL_S": 0.5, "FAILURE_TIMEOUT_S": 3.0,
             "PAUSE_IDLE_S": 0.0}
 FO_VICTIM, FO_SUCCESSOR = 0, 1
+FO_BACKLOG_LIMIT = 0
 # phase 8: config 2 at four engine lanes (bench.py measures ENGINE_SHARDS
 # at min(4, cpus); README "Scaling out a node"): each node's 2^17 rows in
-# four 2^15-row slabs, with phase 5's load, pins and limits
+# four 2^15-row slabs, with phase 5's load and limits.  Failure detection
+# at 300 s and the congestion guard off: at four lanes the runtime can
+# still fall into a re-drive storm whose catch-up sync requests flood
+# each node's loop until the load's time limit (PERF.md §5, lanes;
+# ROADMAP F2); the phase measures the lanes' decide path, and no peer is
+# suspected and no request shed within it.  --defaults runs it at the
+# package defaults
+LANES_FAILURE_TIMEOUT_S, LANES_BACKLOG_LIMIT = 300.0, 0
 LANES = 4
 LANE_CAPACITY = RT_CAPACITY // LANES
 FO_BLACKBOX_MB = 256  # every node's ring holds the whole phase
@@ -187,6 +208,36 @@ def fail(msg: str) -> int:
 
 def info(msg: str) -> None:
     print(msg, flush=True)
+
+
+KERNEL_NAMES = ("accept", "acceptor_wave", "coordinator_wave")
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from gigapaxos_tpu_torch.ops import wave_cuda
+    from gigapaxos_tpu_torch.ops.accept_cuda import accept
+    for k in (accept,) + wave_cuda.KERNELS:
+        k.launches = 0
+
+
+def launches() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from gigapaxos_tpu_torch.ops import wave_cuda
+    from gigapaxos_tpu_torch.ops.accept_cuda import accept
+    out = {"accept": accept.launches}
+    out.update({k.name: k.launches for k in wave_cuda.KERNELS})
+    return out
+
+
+def require_waves(counts: dict, what: str, each: bool) -> None:
+    """The wave kernels were launched on a path: each of them (``each``)
+    or one of them at least."""
+    got = [counts["acceptor_wave"], counts["coordinator_wave"]]
+    if (min(got) if each else sum(got)) < 1:
+        raise AssertionError(f"{what}: wave kernel launches {got} (acceptor,"
+                             f" coordinator): the path did not run "
+                             f"{'each' if each else 'either'} of them")
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -443,6 +494,313 @@ def phase_parity(name_line):
     return rows, max_err
 
 
+# -- phase 2: the runtime's wave kernels ------------------------------------
+
+# the packed column fills of each half of a wave as ColumnarBackend pads
+# them (-1: types.NO_SLOT for a slot, types.NO_BALLOT for a ballot)
+WAVE_FILLS = {
+    "accept": (0, -1, -1, 0, 0),
+    "commit": (0, -1, 0, 0),
+    "request": (0, 0, 0, 0),
+    "reply": (0, -1, -1, 0, 0),
+}
+# which halves each kernel takes, its output rows per half, and the
+# backend.wave_bytes names of (both halves, first alone, second alone)
+WAVE_KERNELS = {
+    "acceptor_wave": (("accept", "commit"), (4, 4),
+                      ("accept_commit_p", "accept_p", "commit_p")),
+    "coordinator_wave": (("request", "reply"), (9, 9),
+                         ("request_reply_p", "propose_accept_self_p",
+                          "accept_reply_commit_self_p")),
+}
+
+
+def wave_host_state(G, W, rng):
+    """A numpy state in the JAX layout for the wave kernels: inactive
+    rows, members 1, 3 or 5, coordinators (some not active, some with a
+    ballot below the promise, so their own accept nacks), next_slot up
+    to the window edge, proposals with votes (some emitted) in the
+    columns of [exec_cursor, next_slot), and decided slots ahead of the
+    cursor behind a gap at it."""
+    from gigapaxos_tpu_torch.ops.types import (EMITTED_BIT, NO_SLOT,
+                                               make_state, state_to_numpy)
+    host = state_to_numpy(make_state(G, W, "cpu"))
+    host["active"][:] = rng.random(G) < 0.9
+    members = rng.choice([1, 3, 3, 5], G).astype(np.int32)
+    host["members"][:] = members
+    cur = rng.integers(0, 1000, G).astype(np.int32)
+    host["exec_cursor"][:] = cur
+    bal = ((rng.integers(0, 8, G) << 12) | rng.integers(0, 3, G)).astype(
+        np.int32)
+    host["bal"][:] = bal
+    coord = rng.random(G) < 0.8
+    host["is_coord"][:] = coord
+    host["coord_active"][:] = coord & (rng.random(G) < 0.95)
+    host["cbal"][:] = np.where(rng.random(G) < 0.9, bal, bal - 4096)
+    nxt = (cur + rng.integers(0, W + 1, G)).astype(np.int32)
+    host["next_slot"][:] = nxt
+    k = np.arange(W)
+    slots = cur[:, None] + k[None, :]
+    rows = np.repeat(np.arange(G), W)
+    cols = (slots % W).ravel()
+    live = slots < nxt[:, None]
+    votes = rng.integers(0, 1 << 5, (G, W)) & ((1 << members[:, None]) - 1)
+    votes |= np.where(rng.random((G, W)) < 0.05, EMITTED_BIT, 0)
+    prop = host["prop"]
+    prop[rows, cols, 0] = np.where(live, slots, NO_SLOT).ravel()
+    prop[rows, cols, 1] = rng.integers(-(1 << 31), 1 << 31, G * W)
+    prop[rows, cols, 2] = rng.integers(-(1 << 31), 1 << 31, G * W)
+    prop[rows, cols, 3] = np.where(live, votes, 0).ravel()
+    decided = (rng.random((G, W)) < 0.5) & (k[None, :] >= 1)
+    dec = host["dec"]
+    dec[rows, cols, 0] = np.where(decided, slots, slots - W).ravel()
+    dec[rows, cols, 1] = rng.integers(-(1 << 31), 1 << 31, G * W)
+    dec[rows, cols, 2] = rng.integers(-(1 << 31), 1 << 31, G * W)
+    acc = host["acc"]
+    acc[...] = rng.integers(-1, 1 << 20, acc.shape)
+    return host
+
+
+def _distinct_pairs(rng, pool, span, n, lo, zero_share=0.0):
+    """n distinct (row, offset) pairs, rows from ``pool``, offsets from
+    [lo, lo + span), a share of the draws at offset 0."""
+    pool = np.asarray(pool)
+    if len(pool) * span <= 8 * n:  # few rows: every pair, then a sample
+        keys = (pool[:, None].astype(np.int64) * span
+                + np.arange(span)[None, :]).ravel()
+    else:
+        m = 4 * n + 64
+        off = np.where(rng.random(m) < zero_share, -lo,
+                       rng.integers(0, span, m))
+        keys = np.unique(rng.choice(pool, m).astype(np.int64) * span + off)
+    if len(keys) < n:
+        raise AssertionError(f"wave lanes: {len(keys)} distinct pairs of "
+                             f"{n}")
+    keys = rng.permutation(keys)[:n]
+    return (keys // span).astype(np.int32), (keys % span + lo).astype(
+        np.int32)
+
+
+def _ids(rng, n):
+    return (rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+            for _ in range(2))
+
+
+def wave_half(half, host, n, rng, rows=None):
+    """The columns of ``n`` live lanes of one half of a wave, drawn on
+    ``rows`` (a contended chunk) or on every row (a runtime chunk)."""
+    from gigapaxos_tpu_torch.ops.types import NO_SLOT
+    G, W = host["bal"].shape[0], host["acc"].shape[1]
+    cur, members = host["exec_cursor"], host["members"]
+    pool = np.arange(G) if rows is None else rows
+    per_row = W if rows is None else -(-n // len(pool))
+    if half == "accept":  # stale, in-window and beyond; ballots around
+        g, off = _distinct_pairs(rng, pool, per_row + 8, n, -4)
+        bal = host["bal"][g] + rng.choice([-4096, 0, 0, 4096], n)
+        return [g, (cur[g] + off).astype(np.int32), bal.astype(np.int32),
+                *_ids(rng, n)]
+    if half == "commit":  # around the cursor, many closing its gap
+        g, off = _distinct_pairs(rng, pool, per_row + 4, n, -2, 0.3)
+        return [g, (cur[g] + off).astype(np.int32), *_ids(rng, n)]
+    if half == "request":  # few groups, many proposals each
+        few = rng.choice(pool, max(1, min(len(pool), n // 8)),
+                         replace=False)
+        g = np.where(rng.random(n) < 0.9, rng.choice(few, n),
+                     rng.choice(pool, n)).astype(np.int32)
+        smidx = (rng.integers(0, 1 << 10, n) % members[g]).astype(np.int32)
+        return [g, *_ids(rng, n), smidx]
+    # replies: the proposed columns of [cursor, next_slot), one lane a
+    # (row, slot, sender), mostly acks at cbal, some nacks, a few above
+    # cbal (preemptions), some on slots never proposed
+    nxt = host["next_slot"]
+    cand = [(r, s, m) for r in rng.choice(pool, min(len(pool), n),
+                                          replace=False).tolist()
+            for s in range(int(cur[r]), int(nxt[r]))
+            for m in range(int(members[r]))]
+    if len(cand) < n:
+        cand += [(int(r), int(cur[r]) + W + i, 0) for i, r in
+                 enumerate(rng.choice(pool, n - len(cand)))]
+    pick = rng.permutation(len(cand))[:n]
+    g, slot, sender = (np.asarray(c, np.int32) for c in
+                       zip(*[cand[i] for i in pick]))
+    cb = host["cbal"][g]
+    acked = rng.random(n) < 0.85
+    bal = np.where(acked | (rng.random(n) < 0.7), cb,
+                   cb + 4096).astype(np.int32)
+    slot = np.where(rng.random(n) < 0.05, NO_SLOT, slot).astype(np.int32)
+    return [g, slot, bal, sender, acked.astype(np.int32)]
+
+
+def wave_packed(half, cols, n, B, dev):
+    """One half's packed [k+1, B] input on ``dev``, padded as
+    ``ColumnarBackend`` pads a wave."""
+    fills = WAVE_FILLS[half]
+    out = np.empty((len(fills) + 1, B), np.int32)
+    for i, (c, f) in enumerate(zip(cols, fills)):
+        out[i, :n] = c
+        out[i, n:] = f
+    out[-1] = np.arange(B) < n
+    return torch.from_numpy(out).to(dev)
+
+
+def clone_all(st):
+    """The state with every plane copied."""
+    return dataclasses.replace(st, **{f: t.clone() for f, t in st.items()})
+
+
+def check_wave(name, base, halves, n, what):
+    """The wave kernel and its torch bodies (``kernels.*_wave_plain``) on
+    identical clones of ``base``: every state plane and the live lanes of
+    every output row must be bit-identical.  Returns the max abs error
+    (0)."""
+    from gigapaxos_tpu_torch.ops import kernels, wave_cuda
+    kern = getattr(wave_cuda, name.split("_")[0])
+    plain = getattr(kernels, f"{name}_plain")
+    st_k, st_p = clone_all(base), clone_all(base)
+    out_k = kern(st_k, *halves)
+    out_p = plain(st_p, *halves)
+    torch.cuda.synchronize()
+    rows = WAVE_KERNELS[name][1]
+    live = []
+    at = 0
+    for h, r in zip(halves, rows):
+        if h is not None:
+            live.append((out_k[at:at + r, :n], out_p[at:at + r, :n]))
+            at += r
+    max_err = 0
+    pairs = [(f"out[{i}]", a, b) for i, (a, b) in enumerate(live)] + \
+        [(f, getattr(st_k, f), getattr(st_p, f)) for f, _ in base.items()]
+    for what_f, a, b in pairs:
+        err = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+        max_err = max(max_err, err)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} kernel != its torch bodies: "
+                                 f"{what_f} ({what}, max abs err {err})")
+    return max_err
+
+
+def time_wave(name, base, halves, variant, hbm):
+    """Kernel and plain device times of one call on ``base``'s state,
+    restored before each timed call, and the byte bound of the wave
+    (``backend.wave_bytes`` at this bucket)."""
+    from gigapaxos_tpu_torch.ops import kernels, wave_cuda
+    from gigapaxos_tpu_torch.paxos.backend import wave_bytes
+    kern = getattr(wave_cuda, name.split("_")[0])
+    plain = getattr(kernels, f"{name}_plain")
+    st = clone_all(base)
+    written = ("bal", "acc", "dec", "exec_cursor", "is_coord",
+               "coord_active", "next_slot", "prop")
+
+    def restore():
+        for f in written:
+            getattr(st, f).copy_(getattr(base, f))
+
+    B = next(h for h in halves if h is not None).shape[1]
+    nbytes = wave_bytes(WAVE_KERNELS[name][2][variant], B, base.W)
+    return {"ms": device_ms(lambda: kern(st, *halves), before=restore),
+            "plain_ms": device_ms(lambda: plain(st, *halves),
+                                  before=restore),
+            "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3}
+
+
+def phase_wave_parity(name_line):
+    """The two wave kernels against their torch bodies on the card, on
+    phase 5's 2^17-row slab and phase 8's 2^15-row lane slab, at every
+    bucket of the runtime's ladder over ``PARITY_SEEDS``, with both
+    halves live and with each half empty, and on a contended chunk
+    (``CONTENDED``: 4096 lanes on 64 rows); times at every bucket on
+    both slabs (seed 0, both halves).  Every state plane and every live
+    output lane must be bit-identical."""
+    from gigapaxos_tpu_torch.ops.types import state_from_numpy
+    hbm = HBM_BYTES_PER_S["pcie" if "PCIe" in name_line else "default"]
+    dev = torch.device("cuda")
+    rows = {}
+    max_err = 0
+    checked = 0
+    for G, key in ((RT_CAPACITY, "rt"), (LANE_CAPACITY, "lane")):
+        for seed in PARITY_SEEDS:
+            rng = np.random.default_rng(100 + seed)
+            host = wave_host_state(G, RT_WINDOW, rng)
+            base = state_from_numpy(host, dev)
+            for name, (kinds, _, _) in WAVE_KERNELS.items():
+                for B in RT_BUCKETS:
+                    n = int(rng.integers(B // 8 + 1, B + 1))
+                    both = [wave_packed(h, wave_half(h, host, n, rng), n, B,
+                                        dev) for h in kinds]
+                    for variant, halves in enumerate(
+                            (both, [both[0], None], [None, both[1]])):
+                        max_err = max(max_err, check_wave(
+                            name, base, halves, n,
+                            f"{key} slab (G={G}), seed {seed}, {n} of "
+                            f"B={B}, halves {[h is not None for h in halves]}"
+                        ))
+                        checked += 1
+                    if seed == PARITY_SEEDS[0]:
+                        rows[f"{name}_{key}_{B}"] = dict(
+                            time_wave(name, base, both, 0, hbm), live=n)
+            del base
+    # a contended chunk: 4096 lanes on 64 rows of the runtime's slab
+    B, n_rows = CONTENDED
+    rng = np.random.default_rng(7)
+    host = wave_host_state(RT_CAPACITY, RT_WINDOW, rng)
+    base = state_from_numpy(host, dev)
+    few = rng.choice(np.flatnonzero(host["active"] & host["coord_active"]),
+                     n_rows, replace=False)
+    for name, (kinds, _, _) in WAVE_KERNELS.items():
+        both = [wave_packed(h, wave_half(h, host, B, rng, rows=few), B, B,
+                            dev) for h in kinds]
+        for halves in (both, [both[0], None], [None, both[1]]):
+            max_err = max(max_err, check_wave(
+                name, base, halves, B, f"contended, {B} lanes on {n_rows} "
+                f"rows, halves {[h is not None for h in halves]}"))
+            checked += 1
+    del base
+    torch.cuda.empty_cache()
+    for k, r in rows.items():
+        info(f"wave {k}: kernel {r['ms']:.4f} ms, plain "
+             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+             f"({r['bytes']} B at {hbm / 1e12:.2f} TB/s), {r['live']} live "
+             f"lanes, bit-exact [{name_line}]")
+    return rows, max_err, checked
+
+
+def wave_submit_no_sync():
+    """One fused acceptor and one fused coordinator wave submitted on a
+    runtime-sized ``ColumnarBackend`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: the submit must not
+    synchronize the host with the card (a warm-up wave of each first)."""
+    from gigapaxos_tpu_torch.paxos.backend import ColumnarBackend
+    G, n = RT_CAPACITY, 64
+    bk = ColumnarBackend(G, RT_WINDOW)
+    rows = np.arange(1000, dtype=np.int32)
+    bk.create(rows, np.full(1000, 3, np.int32), np.zeros(1000, np.int32),
+              np.zeros(1000, np.int32), np.ones(1000, bool))
+    rng = np.random.default_rng(3)
+
+    def submits(it):
+        g = rng.permutation(1000)[:n].astype(np.int32)
+        slot = np.full(n, it, np.int32)
+        reqs = rng.integers(1, 1 << 62, n).astype(np.uint64)
+        zero = np.zeros(n, np.int32)
+        return (bk.accept_commit_submit(g, slot, zero, reqs, g, slot, reqs),
+                bk.propose_self_reply_submit(g, reqs, zero, g, slot, zero,
+                                             np.ones(n, np.int32),
+                                             np.ones(n, bool)))
+
+    for w in submits(0):
+        w.collect()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        waves = submits(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for w in waves:
+        w.collect()
+    del bk
+    torch.cuda.empty_cache()
+
+
 def _same(a, b, what):
     """Equal results (nested tuples / dicts of arrays), or raise."""
     if isinstance(a, dict):
@@ -683,7 +1041,6 @@ def phase_phase1_parity(device="cuda"):
 
 
 def phase_storm():
-    from gigapaxos_tpu_torch.ops.accept_cuda import accept
     from gigapaxos_tpu_torch.ops.storm import decide_storm_step, make_fleet
     G, W, R, B = G_FULL, W_FULL, R_FULL, STORM_B
     states = make_fleet(G, W, R)
@@ -702,7 +1059,7 @@ def phase_storm():
         valid = torch.ones(B, dtype=torch.bool, device=dev)
         steps.append((g, rlo, rhi, valid))
     torch.cuda.synchronize()
-    accept.launches = 0
+    reset_launches()
     decided_total = 0
     wall = 0.0
     for i, (g, rlo, rhi, valid) in enumerate(steps):
@@ -718,7 +1075,7 @@ def phase_storm():
             raise AssertionError(f"storm step {i}: decided {decided} != "
                                  f"granted {granted}")
         decided_total += decided
-    launches = accept.launches
+    counts = launches()
     for r in range(R):
         if not torch.equal(states[r].exec_cursor.long(), cursor_want):
             raise AssertionError(f"storm: replica {r} exec_cursor differs "
@@ -727,18 +1084,20 @@ def phase_storm():
             raise AssertionError(f"storm: replica {r} dec plane differs")
     del states
     torch.cuda.empty_cache()
-    want = STORM_STEPS * R
-    if launches != want:
-        raise AssertionError(f"storm: accept launches {launches} != {want}")
+    # one accept launch a replica a step; the storm keeps its torch bodies
+    # for the other steps, so no wave kernel runs
+    want = {"accept": STORM_STEPS * R, "acceptor_wave": 0,
+            "coordinator_wave": 0}
+    if counts != want:
+        raise AssertionError(f"storm: launches {counts} != {want}")
     return {"decided": decided_total, "wall_s": wall,
-            "decisions_per_s": decided_total / wall, "launches": launches}
+            "decisions_per_s": decided_total / wall, "launches": counts}
 
 
 # -- phase 4 -----------------------------------------------------------------
 
 
 def phase_spi():
-    from gigapaxos_tpu_torch.ops.accept_cuda import accept
     from gigapaxos_tpu_torch.paxos.backend import ColumnarBackend, _chunks
     G, W, B = G_FULL, W_FULL, SPI_B
     bks = [ColumnarBackend(G, W) for _ in range(3)]
@@ -750,7 +1109,10 @@ def phase_spi():
     rng = np.random.default_rng(1)
     granted_rows = []
     decided_total = granted_total = 0
-    want_launches = 0
+    # exact launches: a plain accept wave is one accept launch a chunk;
+    # a commit wave and a fused acceptor wave one acceptor-wave launch a
+    # chunk; propose and accept_reply stay torch bodies
+    want = dict.fromkeys(KERNEL_NAMES, 0)
 
     def replies(g, pr, acks):
         newly = np.zeros(len(g), np.int32)
@@ -771,7 +1133,7 @@ def phase_spi():
             1, 1 << 31, B, dtype=np.int64).astype(np.uint64)
         return g, reqs, bks[0].propose(g, reqs)
 
-    accept.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     for it in range(SPI_ITERS):
         g, reqs, pr = wave(it)
@@ -779,10 +1141,11 @@ def phase_spi():
         for b in bks:
             acks.append(b.accept(g, pr.slot, pr.cbal, reqs).acked &
                         pr.granted)
-            want_launches += len(_chunks(B))
+            want["accept"] += len(_chunks(B))
         newly = replies(g, pr, acks)
         for b in bks:
             b.commit(g, pr.slot, reqs)
+            want["acceptor_wave"] += len(_chunks(B))
         decided_total += int(newly.sum())
         granted_total += int(pr.granted.sum())
         granted_rows.append(g[pr.granted])
@@ -802,7 +1165,7 @@ def phase_spi():
             if not cres.applied.all():
                 raise AssertionError("spi: fused commit not applied")
             acks.append(ares.acked & pr.granted)
-            want_launches += len(_chunks(max(B, len(pending[0]))))
+            want["acceptor_wave"] += len(_chunks(max(B, len(pending[0]))))
         newly = replies(g, pr, acks)
         pending = (g[newly], pr.slot[newly], reqs[newly])
         decided_total += int(newly.sum())
@@ -811,7 +1174,8 @@ def phase_spi():
     for b in bks:
         if not b.commit(*pending).applied.all():
             raise AssertionError("spi: final commit not applied")
-    launches = accept.launches
+        want["acceptor_wave"] += len(_chunks(len(pending[0])))
+    counts = launches()
     if decided_total != granted_total:
         raise AssertionError(f"spi: decided {decided_total} != granted "
                              f"{granted_total}")
@@ -821,15 +1185,14 @@ def phase_spi():
         if not np.array_equal(cur, want_cursor):
             raise AssertionError(f"spi: replica {r} exec_cursor differs "
                                  "from the recount")
-    if launches != want_launches:
-        raise AssertionError(f"spi: accept launches {launches} != "
-                             f"{want_launches}")
+    if counts != want:
+        raise AssertionError(f"spi: launches {counts} != {want}")
     mem = bks[0].memory_info()
     del bks
     torch.cuda.empty_cache()
     return {"decided": decided_total, "wall_s": wall,
             "decisions_per_s": plain_decided / wall,
-            "launches": launches, "slab_bytes": mem["total_bytes"]}
+            "launches": counts, "slab_bytes": mem["total_bytes"]}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -859,18 +1222,62 @@ def _runtime_threads():
             if t.name.startswith("gp-") and t.is_alive()]
 
 
+def _detection() -> dict:
+    """The failure detection and congestion guard a phase runs under."""
+    from gigapaxos_tpu_torch.paxos.paxosconfig import PC
+    from gigapaxos_tpu_torch.utils.config import Config
+    return {"failure_timeout_s": Config.get(PC.FAILURE_TIMEOUT_S),
+            "backlog_limit": Config.get(PC.INTAKE_BACKLOG_LIMIT)}
+
+
+def _pin_lanes() -> None:
+    """Phase 8's failure detection and congestion guard
+    (``LANES_FAILURE_TIMEOUT_S``, ``LANES_BACKLOG_LIMIT``)."""
+    from gigapaxos_tpu_torch.paxos.paxosconfig import PC
+    from gigapaxos_tpu_torch.utils.config import Config
+    Config.set(PC.FAILURE_TIMEOUT_S, LANES_FAILURE_TIMEOUT_S)
+    Config.set(PC.INTAKE_BACKLOG_LIMIT, LANES_BACKLOG_LIMIT)
+
+
+def _settle(nodes, res, n_requests, strict, what):
+    """Every request answered with status 0 and executed on every
+    replica, or (not ``strict``) a failure only reported.  Returns
+    whether all was answered and executed."""
+    ok = res["ok"] == n_requests and not res["errors"]
+    if strict and not ok:
+        raise AssertionError(
+            f"{what}: {res['ok']} of {n_requests} answered, "
+            f"{res['errors']} errors: {json.dumps(res)}; coordinator "
+            f"installs {sum(n.n_installs for n in nodes)}, shed "
+            f"{sum(n.n_shed for n in nodes)}, re-driven "
+            f"{sum(n.n_redriven for n in nodes)}")
+    if ok:
+        try:
+            _wait(lambda: all(c == n_requests for c in _executed(nodes)),
+                  RT_TIMEOUT_S, "every replica to execute every request",
+                  lambda: f"executed {_executed(nodes)} of {n_requests}")
+        except AssertionError:
+            if strict:
+                raise
+            info(f"{what}: executed {_executed(nodes)} of {n_requests} "
+                 f"after {RT_TIMEOUT_S} s")
+            ok = False
+    return ok
+
+
 def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
-                  n_requests=RT_REQUESTS, depth=RT_DEPTH):
+                  n_requests=RT_REQUESTS, depth=RT_DEPTH, strict=True):
     """Config 2 through the node runtime: 3 ``PaxosNode``s on loopback,
-    every accept of every node through the accept kernel.  Checks every
-    request answered, the replicas in agreement (counts, digests,
+    every fused wave of every node through the wave kernels.  Checks
+    every request answered, the replicas in agreement (counts, digests,
     ``exec_cursor`` on every group that took traffic) and the launches.
+    ``strict=False`` reports what the run did (requests answered,
+    elections, agreement) instead of failing on it.
     ``device="cpu"`` runs the same drive on the plain versions (a small
     rehearsal off the card)."""
     import shutil
     import tempfile
     from gigapaxos_tpu_torch import native
-    from gigapaxos_tpu_torch.ops.accept_cuda import accept
     from gigapaxos_tpu_torch.ops.types import state_to_numpy
     from gigapaxos_tpu_torch.paxos.interfaces import CounterApp
     from gigapaxos_tpu_torch.paxos.paxosconfig import PC
@@ -883,15 +1290,14 @@ def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
     Config.set(PC.COLUMNAR_DEVICE, device)
     Config.set(PC.PIPELINE_WORKER, True)
     Config.set(PC.FUSE_WAVES, "auto")
-    Config.set(PC.INTAKE_BACKLOG_LIMIT, RT_BACKLOG_LIMIT)
     Config.set(PC.PAUSE_IDLE_S, RT_PAUSE_IDLE_S)
+    detection = _detection()
     logdir = tempfile.mkdtemp(prefix="gp_chip_smoke_")
     emu = None
     try:
         emu = PaxosEmulation(logdir, n_nodes=RT_NODES, n_groups=0,
                              app_cls=CounterApp, capacity=capacity,
-                             window=RT_WINDOW, sync_wal=False,
-                             failure_timeout_s=RT_FAILURE_TIMEOUT_S)
+                             window=RT_WINDOW, sync_wal=False)
         nodes = [emu.nodes[i] for i in range(RT_NODES)]
         if device == "cuda" and not all(n._fuse_waves for n in nodes):
             raise AssertionError("runtime: fused waves are off on the card")
@@ -899,23 +1305,18 @@ def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
         emu.create_groups(n_groups)
         create_s = time.perf_counter() - t0
         DelayProfiler.clear()
-        accept.launches = 0
+        reset_launches()
         res = emu.run_load_fast(n_requests, concurrency=depth,
                                 timeout=RT_TIMEOUT_S)
-        if res["ok"] != n_requests or res["errors"]:
-            raise AssertionError(f"runtime: {res['ok']} of {n_requests} "
-                                 f"answered, {res['errors']} errors: "
-                                 f"{json.dumps(res)}")
-        _wait(lambda: all(c == n_requests for c in _executed(nodes)),
-              RT_TIMEOUT_S, "every replica to execute every request",
-              lambda: f"executed {_executed(nodes)} of {n_requests}")
-        launches = accept.launches
+        answered = _settle(nodes, res, n_requests, strict, "runtime")
+        counts = launches()
         totals = {k: v for k, v in DelayProfiler.totals().items()
                   if k.startswith(("w.", "eng.submit", "eng.collect"))}
         # elections won mid-phase (0 unless a peer was suspected) and
         # accepts the coordinators re-drove (a decision not back in 1 s)
         installs = sum(n.n_installs for n in nodes)
         redriven = sum(n.n_redriven for n in nodes)
+        shed = sum(n.n_shed for n in nodes)
         emu.stop()
         emu = None
         # a node's stop joins its threads with bounded waits; one still
@@ -925,23 +1326,28 @@ def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
         _wait(lambda: not _runtime_threads(), RT_TIMEOUT_S,
               "the nodes' threads to end after stop")
         mems = [n.backend.memory_info() for n in nodes]
-        counts = [dict(n.app.count) for n in nodes]
+        apps = [dict(n.app.count) for n in nodes]
         digests = [dict(n.app.digest) for n in nodes]
-        if any(c != counts[0] for c in counts[1:]):
-            raise AssertionError("runtime: replicas' counts differ")
-        if any(d != digests[0] for d in digests[1:]):
-            raise AssertionError("runtime: replicas' digests differ")
-        for i, n in enumerate(nodes):
-            cur = state_to_numpy(n.backend.state)["exec_cursor"]
-            for name, c in counts[i].items():
-                row = n.table.by_name(name).row
-                if int(cur[row]) != c:
-                    raise AssertionError(
-                        f"runtime: node {i} group {name}: exec_cursor "
-                        f"{int(cur[row])} != count {c}")
-        if device == "cuda" and launches < 1:
-            raise AssertionError("runtime: the accept kernel was not "
-                                 "launched on the runtime path")
+        try:
+            if any(c != apps[0] for c in apps[1:]):
+                raise AssertionError("runtime: replicas' counts differ")
+            if any(d != digests[0] for d in digests[1:]):
+                raise AssertionError("runtime: replicas' digests differ")
+            for i, n in enumerate(nodes):
+                cur = state_to_numpy(n.backend.state)["exec_cursor"]
+                for name, c in apps[i].items():
+                    row = n.table.by_name(name).row
+                    if int(cur[row]) != c:
+                        raise AssertionError(
+                            f"runtime: node {i} group {name}: exec_cursor "
+                            f"{int(cur[row])} != count {c}")
+            agree = True
+        except AssertionError:
+            if strict:
+                raise
+            agree = False
+        if device == "cuda":
+            require_waves(counts, "runtime", each=True)
         if "jax" in sys.modules:
             raise AssertionError("runtime: jax was imported")
     finally:
@@ -950,10 +1356,11 @@ def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
         Config.clear()
         shutil.rmtree(logdir, ignore_errors=True)
     return {"groups": n_groups, "requests": n_requests, "depth": depth,
-            "installs": installs, "redriven": redriven,
-            "create_s": create_s, "res": res, "launches": launches,
-            "totals": totals, "memory": mems,
-            "groups_with_traffic": len(counts[0])}
+            "installs": installs, "redriven": redriven, "shed": shed,
+            "create_s": create_s, "res": res, "launches": counts,
+            "totals": totals, "memory": mems, "detection": detection,
+            "answered": answered, "agree": agree,
+            "groups_with_traffic": len(apps[0])}
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -1022,7 +1429,6 @@ def phase_failover(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
     capture into ``out_dir`` and returns the phase's numbers."""
     import shutil
     import tempfile
-    from gigapaxos_tpu_torch.ops.accept_cuda import accept
     from gigapaxos_tpu_torch.ops.types import unpack_ballot
     from gigapaxos_tpu_torch.paxos.interfaces import CounterApp
     from gigapaxos_tpu_torch.paxos.packets import group_key
@@ -1033,7 +1439,7 @@ def phase_failover(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
     Config.set(PC.COLUMNAR_DEVICE, device)
     Config.set(PC.PIPELINE_WORKER, True)
     Config.set(PC.FUSE_WAVES, "auto")
-    Config.set(PC.INTAKE_BACKLOG_LIMIT, RT_BACKLOG_LIMIT)
+    Config.set(PC.INTAKE_BACKLOG_LIMIT, FO_BACKLOG_LIMIT)
     Config.set(PC.BLACKBOX_MB, FO_BLACKBOX_MB)
     Config.set(PC.BLACKBOX_S, 0.0)  # no age eviction: the whole history
     for key, val in FO_KNOBS.items():
@@ -1058,7 +1464,7 @@ def phase_failover(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
         for n in survivors:
             _count_rows(n.backend, rows)
         DelayProfiler.clear()
-        accept.launches = 0
+        reset_launches()
         waves0 = [n.blackbox.n_records for n in nodes]
         pre = emu.run_load_fast(n_requests, concurrency=depth,
                                 timeout=FO_TIMEOUT_S)
@@ -1072,7 +1478,7 @@ def phase_failover(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
             raise AssertionError("failover: a coordinator was installed "
                                  "before the kill (spurious election)")
         out["pre"] = pre
-        out["pre_launches"] = accept.launches
+        out["pre_launches"] = launches()
         pre_totals = DelayProfiler.totals()
         out["pre_ring"] = [n.blackbox.n_records - w0
                            for n, w0 in zip(nodes, waves0)]
@@ -1101,7 +1507,7 @@ def phase_failover(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
         out["groups"] = n_groups
         out["capacity"] = capacity
         out["installs"] = succ.n_installs
-        launches_kill = accept.launches
+        launches_kill = launches()
         post = emu.run_load_fast(n_requests, concurrency=depth,
                                  timeout=FO_TIMEOUT_S, client_id=1 << 21)
         if post["ok"] != n_requests or post["errors"]:
@@ -1114,11 +1520,12 @@ def phase_failover(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
               lambda: f"executed {_executed(survivors)} of "
                       f"{2 * n_requests}")
         _quiesce(survivors, FO_TIMEOUT_S)
-        out["post_launches"] = accept.launches - launches_kill
-        out["launches"] = accept.launches
-        if device == "cuda" and out["post_launches"] < 1:
-            raise AssertionError("failover: the accept kernel was not "
-                                 "launched after the kill")
+        out["launches"] = launches()
+        out["post_launches"] = {k: v - launches_kill[k]
+                                for k, v in out["launches"].items()}
+        if device == "cuda":
+            require_waves(out["post_launches"], "failover after the kill",
+                          each=False)
         totals = DelayProfiler.totals()
         out["totals"] = {k: v for k, v in totals.items()
                          if k.startswith(("w.prepare", "w.install"))}
@@ -1166,31 +1573,29 @@ def phase_failover(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
 
 def replay_one(path, device="cuda", knobs=None):
     """Replay one capture on ``device``: verdict ``MATCH``, not partial,
-    no group mismatch, and (on the card) the accept kernel launched.
+    no group mismatch, and (on the card) a wave kernel launched.
     ``knobs`` are the tick-driven settings (``PC`` names) the capture was
     recorded under; the defaults for the rest."""
     from gigapaxos_tpu_torch.blackbox.replay import replay_capture
-    from gigapaxos_tpu_torch.ops.accept_cuda import accept
     from gigapaxos_tpu_torch.paxos.paxosconfig import PC
     from gigapaxos_tpu_torch.utils.config import Config
     Config.set(PC.COLUMNAR_DEVICE, device)
     for key, val in (knobs or {}).items():
         Config.set(getattr(PC, key), val)
     try:
-        accept.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         rep = replay_capture(path)
         rep["wall_s"] = time.perf_counter() - t0
-        rep["launches"] = accept.launches
+        rep["launches"] = launches()
     finally:
         Config.clear()
     if rep["verdict"] != "MATCH" or rep["partial"] or \
             rep["group_mismatches"] or rep["row_mismatches"]:
         from gigapaxos_tpu_torch.blackbox.replay import render_report
         raise AssertionError(f"replay of {path}:\n{render_report(rep)}")
-    if device == "cuda" and rep["launches"] < 1:
-        raise AssertionError(f"replay of {path}: the accept kernel was not "
-                             "launched")
+    if device == "cuda":
+        require_waves(rep["launches"], f"replay of {path}", each=False)
     if "jax" in sys.modules:
         raise AssertionError("replay: jax was imported")
     return rep
@@ -1291,15 +1696,26 @@ def exposition_series(text: str) -> dict:
 
 
 def _scrape(port: int, path: str) -> bytes:
-    """GET ``path`` off a node's stats listener on loopback."""
-    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
-                                timeout=60) as r:
-        if r.status != 200:
-            raise AssertionError(f"lanes: GET {path} answered {r.status}")
-        return r.read()
+    """GET ``path`` off a node's stats listener on loopback; on a timeout
+    every thread's stack goes to stderr first (what held the node's loop
+    thread or its engine locks)."""
+    import faulthandler
+    import socket
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            if r.status != 200:
+                raise AssertionError(f"lanes: GET {path} answered "
+                                     f"{r.status}")
+            return r.read()
+    except (socket.timeout, TimeoutError):
+        print(f"chip_smoke: GET {path} on port {port} timed out; the "
+              "threads:", file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        raise
 
 
-def _check_scrapes(node, n_groups, slab_bytes):
+def _check_scrapes(node, n_groups, slab_bytes, cuda=True):
     """``/engine``, ``/engine/kernels`` and ``/metrics`` of one node of
     the lanes phase; returns the ``/engine`` view and the series count."""
     port = node.stats_http.port
@@ -1328,6 +1744,13 @@ def _check_scrapes(node, n_groups, slab_bytes):
             for r in ks["costs"].values()):
         raise AssertionError(f"lanes: node {node.id} /engine/kernels "
                              f"{ks['costs']}")
+    # on the card, one ledger row a CUDA library (the accept kernel's and
+    # the wave kernels'), each loaded
+    libs = {k: r for k, r in ks["kernels"].items() if k.startswith("cuda:")}
+    if cuda and set(libs) != {"cuda:accept", "cuda:wave"} or any(
+            r["loads"] < 1 for r in libs.values()):
+        raise AssertionError(f"lanes: node {node.id} /engine/kernels "
+                             f"ledger rows {ks['kernels']}")
     series = exposition_series(_scrape(port, "/metrics").decode())
     if series.get("gp_engine_shards") != LANES:
         raise AssertionError(f"lanes: node {node.id} /metrics lacks "
@@ -1336,21 +1759,25 @@ def _check_scrapes(node, n_groups, slab_bytes):
 
 
 def phase_lanes(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
-                n_requests=RT_REQUESTS, depth=RT_DEPTH, slab_bytes=None):
+                n_requests=RT_REQUESTS, depth=RT_DEPTH, slab_bytes=None,
+                pins=True, strict=True):
     """Phase 5's drive at ``ENGINE_SHARDS=4``, every node's stats listener
     on: each node's rows in four slabs, each slab on its own stream,
     every lane's worker submitting waves.  Checks phase 5's answers and
     agreement, four WAL segments a node, the streams, the per-lane
     profiler totals and the live scrapes (``slab_bytes``: phase 5's one
-    slab, which the four must add up to).  ``device="cpu"`` rehearses
-    the drive off the card."""
+    slab, which the four must add up to).  ``pins``: failure detection
+    and the guard as ``_pin_lanes`` sets them, else at the package
+    defaults.  ``device="cpu"`` rehearses the drive off the card;
+    ``strict`` is :func:`phase_runtime`'s (a run that leaves requests
+    unanswered is then reported without its scrapes, which its nodes'
+    catch-up traffic would hold up)."""
     import asyncio
     import os
     import shutil
     import tempfile
     from gigapaxos_tpu_torch.net.cluster import (merge_cluster_engine,
                                                  scrape_cluster)
-    from gigapaxos_tpu_torch.ops.accept_cuda import accept
     from gigapaxos_tpu_torch.paxos.backend import ShardedColumnarBackend
     from gigapaxos_tpu_torch.paxos.interfaces import CounterApp
     from gigapaxos_tpu_torch.paxos.paxosconfig import PC
@@ -1360,18 +1787,20 @@ def phase_lanes(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
     Config.set(PC.COLUMNAR_DEVICE, device)
     Config.set(PC.PIPELINE_WORKER, True)
     Config.set(PC.FUSE_WAVES, "auto")
-    Config.set(PC.INTAKE_BACKLOG_LIMIT, RT_BACKLOG_LIMIT)
     Config.set(PC.PAUSE_IDLE_S, RT_PAUSE_IDLE_S)
     Config.set(PC.ENGINE_SHARDS, LANES)
     Config.set(PC.STATS_PORT, 0)
+    if pins:
+        _pin_lanes()
+    detection = _detection()
     logdir = tempfile.mkdtemp(prefix="gp_chip_lanes_")
     emu = None
-    out = {"groups": n_groups, "requests": n_requests, "depth": depth}
+    out = {"groups": n_groups, "requests": n_requests, "depth": depth,
+           "detection": detection}
     try:
         emu = PaxosEmulation(logdir, n_nodes=RT_NODES, n_groups=0,
                              app_cls=CounterApp, capacity=capacity,
-                             window=RT_WINDOW, sync_wal=False,
-                             failure_timeout_s=RT_FAILURE_TIMEOUT_S)
+                             window=RT_WINDOW, sync_wal=False)
         nodes = [emu.nodes[i] for i in range(RT_NODES)]
         for n in nodes:
             if n.shards != LANES or not isinstance(
@@ -1400,18 +1829,16 @@ def phase_lanes(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
         emu.create_groups(n_groups)
         out["create_s"] = time.perf_counter() - t0
         DelayProfiler.clear()
-        accept.launches = 0
+        reset_launches()
         res = emu.run_load_fast(n_requests, concurrency=depth,
                                 timeout=RT_TIMEOUT_S)
-        if res["ok"] != n_requests or res["errors"]:
-            raise AssertionError(f"lanes: {res['ok']} of {n_requests} "
-                                 f"answered, {res['errors']} errors: "
-                                 f"{json.dumps(res)}")
-        _wait(lambda: all(c == n_requests for c in _executed(nodes)),
-              RT_TIMEOUT_S, "every replica to execute every request",
-              lambda: f"executed {_executed(nodes)} of {n_requests}")
+        out["answered"] = _settle(nodes, res, n_requests, strict, "lanes")
         out["res"] = res
-        out["launches"] = accept.launches
+        out["launches"] = launches()
+        info(f"lanes: the load: {json.dumps(res)}; installs "
+             f"{sum(n.n_installs for n in nodes)}, shed "
+             f"{sum(n.n_shed for n in nodes)}, re-driven "
+             f"{sum(n.n_redriven for n in nodes)}; scraping")
         totals = DelayProfiler.totals()
         out["lanes"] = {k: {tag: totals.get(f"{tag}@{k}", (0.0, 0, 0))[:3]
                             for tag in ("eng.submit", "eng.collect",
@@ -1427,19 +1854,22 @@ def phase_lanes(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
                                      "no wave")
         out["installs"] = sum(n.n_installs for n in nodes)
         out["redriven"] = sum(n.n_redriven for n in nodes)
+        out["shed"] = sum(n.n_shed for n in nodes)
         # the flight deck, scraped live off each node's listener
-        out["engine"], out["series"] = [], []
-        for n in nodes:
-            eng, n_series = _check_scrapes(n, n_groups, slab_bytes)
+        out["engine"], out["series"], out["merged_bytes"] = [], [], None
+        for n in nodes if out["answered"] else ():
+            eng, n_series = _check_scrapes(n, n_groups, slab_bytes,
+                                           device == "cuda")
             out["engine"].append(eng)
             out["series"].append(n_series)
-        peers = {n.id: ("127.0.0.1", n.stats_http.port) for n in nodes}
-        merged = merge_cluster_engine(asyncio.run(
-            scrape_cluster(peers, "/engine", timeout=60.0)))
-        if merged["cluster"]["nodes"] != {n.id: 1 for n in nodes}:
-            raise AssertionError(f"lanes: cluster merge "
-                                 f"{merged['cluster']}")
-        out["merged_bytes"] = merged["memory"]["total_bytes"]
+        if out["answered"]:
+            peers = {n.id: ("127.0.0.1", n.stats_http.port) for n in nodes}
+            merged = merge_cluster_engine(asyncio.run(
+                scrape_cluster(peers, "/engine", timeout=60.0)))
+            if merged["cluster"]["nodes"] != {n.id: 1 for n in nodes}:
+                raise AssertionError(f"lanes: cluster merge "
+                                     f"{merged['cluster']}")
+            out["merged_bytes"] = merged["memory"]["total_bytes"]
         for i in range(RT_NODES):
             segs = sorted(f for f in os.listdir(os.path.join(logdir,
                                                              f"n{i}"))
@@ -1452,23 +1882,28 @@ def phase_lanes(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
               "the nodes' threads to end after stop")
         counts = [dict(n.app.count) for n in nodes]
         digests = [dict(n.app.digest) for n in nodes]
-        if any(c != counts[0] for c in counts[1:]):
-            raise AssertionError("lanes: replicas' counts differ")
-        if any(d != digests[0] for d in digests[1:]):
-            raise AssertionError("lanes: replicas' digests differ")
-        for i, n in enumerate(nodes):
-            names = sorted(counts[i])
-            rows = np.asarray([n.table.by_name(g).row for g in names])
-            cur = n.backend.inspect_rows(rows)["exec_cursor"]
-            for name, c in zip(names, cur.tolist()):
-                if c != counts[i][name]:
-                    raise AssertionError(
-                        f"lanes: node {i} group {name}: exec_cursor {c} "
-                        f"!= count {counts[i][name]}")
+        try:
+            if any(c != counts[0] for c in counts[1:]):
+                raise AssertionError("lanes: replicas' counts differ")
+            if any(d != digests[0] for d in digests[1:]):
+                raise AssertionError("lanes: replicas' digests differ")
+            for i, n in enumerate(nodes):
+                names = sorted(counts[i])
+                rows = np.asarray([n.table.by_name(g).row for g in names])
+                cur = n.backend.inspect_rows(rows)["exec_cursor"]
+                for name, c in zip(names, cur.tolist()):
+                    if c != counts[i][name]:
+                        raise AssertionError(
+                            f"lanes: node {i} group {name}: exec_cursor "
+                            f"{c} != count {counts[i][name]}")
+            out["agree"] = True
+        except AssertionError:
+            if strict:
+                raise
+            out["agree"] = False
         out["groups_with_traffic"] = len(counts[0])
-        if device == "cuda" and out["launches"] < 1:
-            raise AssertionError("lanes: the accept kernel was not "
-                                 "launched")
+        if device == "cuda":
+            require_waves(out["launches"], "lanes", each=True)
         if "jax" in sys.modules:
             raise AssertionError("lanes: jax was imported")
     finally:
@@ -1477,6 +1912,44 @@ def phase_lanes(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
         Config.clear()
         shutil.rmtree(logdir, ignore_errors=True)
     return out
+
+
+def phase_lanes_ab(line):
+    """Phase 8 with and without each of the lanes' two departures from the
+    reference — the process-wide launch lock
+    (``backend.LANE_LAUNCH_LOCKED``) and one sub-batch in a lane's queue
+    (``manager.LANE_QUEUE_DEPTH``; the reference holds four) — the four
+    settings in turn and then in reverse order, between two runs of
+    phase 5's one lane, in one process; prints each run's lines and each
+    setting's four-lane rate over the mean one-lane rate.  A four-lane
+    run that leaves requests unanswered is reported, not failed (its
+    rate counts what it answered)."""
+    from gigapaxos_tpu_torch.paxos import backend, manager
+    rts = [phase_runtime()]
+    _runtime_lines(rts[0], line)
+    settings = [(True, 1), (False, 1), (True, 4), (False, 4)]
+    rates = {}
+    try:
+        for locked, depth in settings + settings[::-1]:
+            backend.LANE_LAUNCH_LOCKED = locked
+            manager.LANE_QUEUE_DEPTH = depth
+            ln = phase_lanes(slab_bytes=rts[0]["memory"][0]["total_bytes"],
+                             strict=False)
+            tag = f"lanes-ab lock={'on' if locked else 'off'} queue={depth}"
+            _lanes_lines(ln, rts[0], line, tag)
+            rates.setdefault(tag, []).append(ln["res"]["throughput_rps"])
+    finally:
+        backend.LANE_LAUNCH_LOCKED = True
+        manager.LANE_QUEUE_DEPTH = 1
+    rts.append(phase_runtime())
+    _runtime_lines(rts[1], line, "runtime (again)")
+    one = statistics.fmean(r["res"]["throughput_rps"] for r in rts)
+    info("lanes-ab: " + json.dumps({
+        "one_lane_rps": [r["res"]["throughput_rps"] for r in rts],
+        "four_lanes_rps": rates,
+        "four_lanes_over_one": {t: statistics.fmean(v) / one
+                                for t, v in rates.items()},
+        "card": line}))
 
 
 def _failover_lines(fo, line):
@@ -1495,8 +1968,8 @@ def _failover_lines(fo, line):
          f"{fo['create_s']:.3f} s ({line})")
     info(f"failover: rows through the survivors' backend.prepare "
          f"{fo['rows']['prepare']}, install_coordinator "
-         f"{fo['rows']['install_coordinator']}; accept "
-         f"launches {fo['pre_launches']} before the kill, "
+         f"{fo['rows']['install_coordinator']}; kernel launches "
+         f"{fo['pre_launches']} before the kill, "
          f"{fo['post_launches']} after the takeover; survivors agree on "
          f"{fo['groups_with_traffic']} groups with traffic")
     for tag in sorted(fo["totals"]):
@@ -1521,52 +1994,66 @@ def _replay_lines(reps, line):
              f"{r['frames']} frames, {r['groups']} groups, "
              f"{r.get('prepare_waves', 0)} prepare waves; create "
              f"{r['create_s']:.3f} s, replay {r['replay_s']:.3f} s, wall "
-             f"{r['wall_s']:.3f} s; accept launches {r['launches']} "
+             f"{r['wall_s']:.3f} s; kernel launches {r['launches']} "
              f"({line})")
 
 
-def _runtime_lines(rt, line):
+def _runtime_lines(rt, line, tag="runtime"):
     r = rt["res"]
-    info(f"runtime: {RT_NODES} PaxosNodes on loopback, {rt['groups']} groups "
+    d = rt["detection"]
+    info(f"{tag}: {RT_NODES} PaxosNodes on loopback, {rt['groups']} groups "
          f"created in {rt['create_s']:.3f} s; {r['ok']} of {rt['requests']} "
-         f"requests answered at depth {rt['depth']} in {r['wall_s']} s: "
-         f"{r['throughput_rps']} decided requests/s, client p50 "
-         f"{r['lat_p50_ms']} ms, p99 {r['lat_p99_ms']} ms ({line})")
-    info(f"runtime: replicas agree on counts, digests and exec_cursor over "
-         f"{rt['groups_with_traffic']} groups with traffic; accept "
-         f"launches {rt['launches']}, "
-         f"{rt['launches'] / rt['requests']:.4f} a decided request; "
-         f"coordinator installs (elections won) {rt['installs']}; "
-         f"accepts re-driven {rt['redriven']}")
-    for tag in sorted(rt["totals"]):
-        wall, calls, items = rt["totals"][tag][:3]
-        info(f"runtime profiler {tag}: {wall:.4f} s over {calls} calls, "
+         f"requests answered ({r['errors']} errors) at depth {rt['depth']} "
+         f"in {r['wall_s']} s: {r['throughput_rps']} decided requests/s, "
+         f"client p50 {r['lat_p50_ms']} ms, p99 {r['lat_p99_ms']} ms; "
+         f"failure timeout {d['failure_timeout_s']} s, backlog limit "
+         f"{d['backlog_limit']} ({line})")
+    n = max(1, rt["requests"])
+    info(f"{tag}: replicas {'agree' if rt['agree'] else 'DISAGREE'} on "
+         f"counts, digests and exec_cursor over {rt['groups_with_traffic']} "
+         f"groups with traffic; kernel launches {rt['launches']}, "
+         + ", ".join(f"{k} {v / n:.4f}" for k, v in rt["launches"].items())
+         + f" a request; coordinator installs (elections won) "
+         f"{rt['installs']}; accepts re-driven {rt['redriven']}; requests "
+         f"shed {rt['shed']}")
+    for k in sorted(rt["totals"]):
+        wall, calls, items = rt["totals"][k][:3]
+        info(f"{tag} profiler {k}: {wall:.4f} s over {calls} calls, "
              f"{items} items")
     for i, m in enumerate(rt["memory"]):
-        info(f"runtime engine {i} memory_info: {json.dumps(m)}")
+        info(f"{tag} engine {i} memory_info: {json.dumps(m)}")
 
 
-def _lanes_lines(ln, rt, line):
+def _lanes_lines(ln, rt, line, tag="lanes"):
     """The lanes phase beside phase 5's single lane, from the same run."""
     for what, d in (("one lane (phase 5)", rt), (f"{LANES} lanes", ln)):
         r = d["res"]
-        info(f"lanes compare, {what}: groups created in "
+        info(f"{tag} compare, {what}: groups created in "
              f"{d['create_s']:.3f} s; {r['ok']} of {d['requests']} "
-             f"answered at depth {d['depth']} in {r['wall_s']} s: "
-             f"{r['throughput_rps']} decided requests/s, client p50 "
-             f"{r['lat_p50_ms']} ms, p99 {r['lat_p99_ms']} ms; re-driven "
-             f"{d['redriven']}, installs {d['installs']}, accept launches "
-             f"{d['launches']} ({line})")
+             f"answered ({r['errors']} errors) at depth {d['depth']} in "
+             f"{r['wall_s']} s: {r['throughput_rps']} decided requests/s, "
+             f"client p50 {r['lat_p50_ms']} ms, p99 {r['lat_p99_ms']} ms; "
+             f"re-driven {d['redriven']}, installs {d['installs']}, shed "
+             f"{d['shed']}, kernel "
+             f"launches {d['launches']}; failure timeout "
+             f"{d['detection']['failure_timeout_s']} s, backlog limit "
+             f"{d['detection']['backlog_limit']} ({line})")
     for k, lane in ln["lanes"].items():
-        info(f"lanes: lane {k}: " + ", ".join(
-            f"{tag}@{k} {v[0]:.4f} s over {v[1]} calls, {v[2]} items"
-            for tag, v in lane.items()))
-    for tag in sorted(ln["totals"]):
-        wall, calls, items = ln["totals"][tag][:3]
-        info(f"lanes profiler {tag}: {wall:.4f} s over {calls} calls, "
+        info(f"{tag}: lane {k}: " + ", ".join(
+            f"{t}@{k} {v[0]:.4f} s over {v[1]} calls, {v[2]} items"
+            for t, v in lane.items()))
+    for k in sorted(ln["totals"]):
+        wall, calls, items = ln["totals"][k][:3]
+        info(f"{tag} profiler {k}: {wall:.4f} s over {calls} calls, "
              f"{items} items")
+    if not ln["engine"]:
+        info(f"{tag}: not every request answered; no scrape, replicas "
+             f"{'agree' if ln['agree'] else 'DISAGREE'}")
+        return
     e = ln["engine"][0]
-    info(f"lanes: replicas agree on counts, digests and exec_cursor over "
+    info(f"{tag}: replicas "
+         f"{'agree' if ln['agree'] else 'DISAGREE'} on counts, digests and "
+         "exec_cursor over "
          f"{ln['groups_with_traffic']} groups with traffic; wal-0..3.log on "
          f"every node; slab streams {ln.get('streams')}; /engine of node 0: "
          f"balance {e['balance']['shards']}, memory "
@@ -1588,6 +2075,16 @@ def main(argv=None) -> int:
     ap.add_argument("--lanes-only", action="store_true",
                     help="run only phases 5 and 8 (one engine lane, "
                     "then four), print their lines and exit")
+    ap.add_argument("--defaults", action="store_true",
+                    help="run only phases 5 and 8 with failure detection "
+                    "and the congestion guard at the package defaults "
+                    "(phase 5 runs so in the whole run too) and report "
+                    "what they did (answers, elections, sheds, agreement) "
+                    "instead of failing on it")
+    ap.add_argument("--lanes-ab", action="store_true",
+                    help="run phase 5, then phase 8 with and without each "
+                    "of the lanes' launch lock and one-sub-batch queue, "
+                    "print their lines and exit")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         return fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -1619,6 +2116,23 @@ def main(argv=None) -> int:
             _lanes_lines(ln, rt, line)
             info("lanes-only: phases 5 and 8")
             return 0
+        if args.defaults:
+            _build.build_all()
+            rt = phase_runtime(strict=False)
+            _runtime_lines(rt, line, "defaults runtime")
+            ln = phase_lanes(slab_bytes=rt["memory"][0]["total_bytes"],
+                             pins=False, strict=False)
+            _lanes_lines(ln, rt, line, "defaults lanes")
+            ok = all(d["answered"] and d["agree"] and not d["installs"]
+                     for d in (rt, ln))
+            info(f"defaults: phases 5 and 8 at the package defaults; every "
+                 f"request answered with status 0, the replicas in "
+                 f"agreement and no election: {ok}")
+            return 0
+        if args.lanes_ab:
+            _build.build_all()
+            phase_lanes_ab(line)
+            return 0
         t0 = time.perf_counter()
         secs = _build.build_all()
         info(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})}"
@@ -1629,6 +2143,17 @@ def main(argv=None) -> int:
                     info(f"ptxas {name}: {ln.strip()}")
 
         timing, max_err = phase_parity(line)
+        wtiming, wave_err, wave_checked = phase_wave_parity(line)
+        info(f"parity: the acceptor and coordinator wave kernels "
+             f"bit-identical to their torch bodies in {wave_checked} "
+             f"chunks: the runtime's slab (G={RT_CAPACITY}) and a lane's "
+             f"slab (G={LANE_CAPACITY}) at every bucket {list(RT_BUCKETS)}, "
+             f"seeds {list(PARITY_SEEDS)}, both halves live and each half "
+             f"empty; and {CONTENDED[0]} lanes on {CONTENDED[1]} rows")
+        wave_submit_no_sync()
+        info("parity: a fused acceptor wave and a fused coordinator wave "
+             "submitted under torch.cuda.set_sync_debug_mode('error'): no "
+             "host synchronization")
         info(f"parity: accept kernel bit-identical to accept_reference at "
              f"B={list(PARITY_BS)}, seeds {list(PARITY_SEEDS)}; at "
              f"B={BIG_B}; {CONTENDED[0]} lanes on {CONTENDED[1]} rows; "
@@ -1655,11 +2180,11 @@ def main(argv=None) -> int:
         storm = phase_storm()
         info(f"storm: {storm['decided']} decisions in {STORM_STEPS} steps "
              f"at B={STORM_B}, {storm['decisions_per_s']:.0f} decisions/s "
-             f"({line}); accept launches {storm['launches']}")
+             f"({line}); kernel launches {storm['launches']}")
         spi = phase_spi()
         info(f"spi: {spi['decided']} decisions through 3 ColumnarBackend "
              f"replicas at B={SPI_B}, {spi['decisions_per_s']:.0f} "
-             f"decisions/s over the plain waves ({line}); accept launches "
+             f"decisions/s over the plain waves ({line}); kernel launches "
              f"{spi['launches']}; slab {spi['slab_bytes']} B a replica")
         rt = phase_runtime()
         _runtime_lines(rt, line)
@@ -1673,21 +2198,24 @@ def main(argv=None) -> int:
         traceback.print_exc()
         return fail(f"{type(e).__name__}: {e}")
 
+    paths = {"storm": [storm["launches"]], "spi": [spi["launches"]],
+             "runtime": [rt["launches"]], "failover": [fo["launches"]],
+             "replay": [r["launches"] for r in reps],
+             "lanes": [ln["launches"]]}
+
+    def launched(name):
+        by_path = {p: [c[name] for c in cs] for p, cs in paths.items()}
+        return sum(sum(v) for v in by_path.values()), by_path
+
     big = timing[str(max(PARITY_BS))]
+    n, by_path = launched("accept")
     kernels = [{
         "name": "accept",
         "route": "cuda",
         "source": "gigapaxos_tpu_torch/ops/csrc/accept.cu",
         "replaces": "gigapaxos_tpu/ops/pallas_accept.py:165",
-        "launches": storm["launches"] + spi["launches"] + rt["launches"]
-        + fo["launches"] + sum(r["launches"] for r in reps)
-        + ln["launches"],
-        "launches_by_path": {"storm": storm["launches"],
-                             "spi": spi["launches"],
-                             "runtime": rt["launches"],
-                             "failover": fo["launches"],
-                             "replay": [r["launches"] for r in reps],
-                             "lanes": ln["launches"]},
+        "launches": n,
+        "launches_by_path": by_path,
         "parity": "bit-exact",
         "max_abs_err": max_err,
         "lanes": max(PARITY_BS),
@@ -1698,6 +2226,29 @@ def main(argv=None) -> int:
         "library_ms": None,
         "by_lanes": timing,
     }]
+    for name, replaces in (("acceptor_wave", "gigapaxos_tpu/ops/kernels.py:644"),
+                           ("coordinator_wave",
+                            "gigapaxos_tpu/ops/kernels.py:629")):
+        n, by_path = launched(name)
+        top = wtiming[f"{name}_rt_{max(RT_BUCKETS)}"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "gigapaxos_tpu_torch/ops/csrc/wave.cu",
+            "replaces": replaces,
+            "launches": n,
+            "launches_by_path": by_path,
+            "parity": "bit-exact",
+            "max_abs_err": wave_err,
+            "lanes": max(RT_BUCKETS),
+            "ms": top["ms"],
+            "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "by_lanes": {k[len(name) + 1:]: v for k, v in wtiming.items()
+                         if k.startswith(name)},
+        })
     info(line)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

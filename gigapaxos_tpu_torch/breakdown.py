@@ -27,8 +27,10 @@ For each it reports the host wall per step and decisions per second
 (profiler off), then, from a profiled window of as many steps, the
 device busy share (device-side event time over that window's wall), the
 top device kernels by time with their share, and the accept kernel's
-share (found by its name, ``accept_cuda.KERNEL_NAME``; a window that
-launched it but shows no time for it is an error, not a 0% share).
+and the wave kernels' shares (found by their names,
+``accept_cuda.KERNEL_NAME`` and each ``wave_cuda`` kernel's
+``kernel_name``; a window that launched one but shows no time for it is
+an error, not a 0% share).
 One warm-up step precedes both windows.  For ``wave`` it reports the
 host wall of a wave (median and mean), alone, with three engine threads
 and beside a Python-only thread, the
@@ -82,6 +84,7 @@ def _profile(step, steps: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from gigapaxos_tpu_torch.ops import wave_cuda
     from gigapaxos_tpu_torch.ops.accept_cuda import KERNEL_NAME, accept
     step()  # warm-up, outside both windows
     torch.cuda.synchronize()
@@ -89,6 +92,7 @@ def _profile(step, steps: int) -> dict:
     decisions = sum(step() for _ in range(steps))
     wall = time.perf_counter() - t0
     launches = accept.launches
+    wave_launches = sum(k.launches for k in wave_cuda.KERNELS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -97,6 +101,8 @@ def _profile(step, steps: int) -> dict:
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     launches = accept.launches - launches
+    wave_launches = sum(k.launches for k in wave_cuda.KERNELS) - \
+        wave_launches
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     rows = [r for r in rows if r[1] > 0]
@@ -107,6 +113,12 @@ def _profile(step, steps: int) -> dict:
         raise RuntimeError(f"breakdown: the accept kernel launched "
                            f"{launches} times but the profiler shows no "
                            f"device time for {KERNEL_NAME}")
+    wave_us = sum(us for k, us, _ in rows
+                  if any(w.kernel_name in k for w in wave_cuda.KERNELS))
+    if wave_launches and not wave_us:
+        raise RuntimeError(f"breakdown: the wave kernels launched "
+                           f"{wave_launches} times but the profiler shows "
+                           "no device time for them")
     return {
         "steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,
@@ -118,6 +130,10 @@ def _profile(step, steps: int) -> dict:
         else 0.0,
         "accept_kernel_us_per_step": accept_us / steps,
         "accept_launches_per_step": launches / steps,
+        "wave_kernel_share_of_device": wave_us / busy_us if busy_us
+        else 0.0,
+        "wave_kernel_us_per_step": wave_us / steps,
+        "wave_launches_per_step": wave_launches / steps,
         "top_kernels": [
             {"name": k[:96], "device_us_per_step": us / steps,
              "calls_per_step": n / steps, "share_of_device": us / busy_us}
@@ -407,8 +423,10 @@ def main(argv=None) -> int:
               f"{r['decisions_per_s']:.0f} decisions/s, accept kernel "
               f"{r['accept_kernel_us_per_step']:.1f} us/step in "
               f"{r['accept_launches_per_step']:.0f} launches "
-              f"({r['accept_kernel_share_of_device']:.2%} of device time) "
-              f"[{card}]")
+              f"({r['accept_kernel_share_of_device']:.2%} of device time), "
+              f"wave kernels {r['wave_kernel_us_per_step']:.1f} us/step in "
+              f"{r['wave_launches_per_step']:.0f} launches "
+              f"({r['wave_kernel_share_of_device']:.2%}) [{card}]")
         for k in r["top_kernels"]:
             print(f"  {k['device_us_per_step']:10.1f} us "
                   f"{k['share_of_device']:6.1%} x{k['calls_per_step']:.0f}"

@@ -57,12 +57,17 @@
 // outside [0, G) is treated as invalid so the kernel never touches memory
 // outside the state.
 //
+// The raise, the decision and the store are accept_dev.cuh's, which the
+// runtime's wave kernels (wave.cu) share.
+//
 // C interface for ctypes: every pointer and the stream as void*, each
 // function returns a cudaError_t as int.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "accept_dev.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -153,7 +158,7 @@ __device__ __forceinline__ void raise_quad(const Args& a, const Quad& q,
                                            const int* pb) {
 #pragma unroll
   for (int k = 0; k < kLanes; ++k)
-    if (q.live[k] && q.bal[k] > pb[k]) atomicMax(a.bal + q.row[k], q.bal[k]);
+    gp::accept_raise(a.bal, q.row[k], q.live[k], q.bal[k], pb[k]);
 }
 
 // Phase B: decide against the post-batch promise, store, write out.
@@ -164,22 +169,14 @@ __device__ __forceinline__ void decide_quad(const Args& a, int64_t base,
   for (int k = 0; k < kLanes; ++k) cb[k] = __ldcg(a.bal + q.row[k]);
 #pragma unroll
   for (int k = 0; k < kLanes; ++k) {
-    int s = q.slot[k], cur = q.cur[k];
-    // int32 wrap-around as in torch/XLA (no signed-overflow UB)
-    int hi = (int)((unsigned)cur + (unsigned)a.W);
-    bool promised = q.live[k] && q.bal[k] >= cb[k];
-    bool stale = q.live[k] && s < cur;
-    bool in_win = s >= cur && s < hi;
-    bool store = promised && in_win;
-    if (store) {
-      int w = s % a.W;  // floor mod: C++ % truncates toward zero
-      if (w < 0) w += a.W;
-      __stcs(a.acc + (size_t)q.row[k] * a.W + w,
-             make_int4(s, q.bal[k], q.rlo[k], q.rhi[k]));
-    }
-    o_ack[k] = store || (promised && stale);
-    o_stale[k] = stale;
-    o_ow[k] = promised && !in_win && !stale;
+    gp::AcceptDecision d = gp::accept_decide(q.live[k], q.bal[k], q.slot[k],
+                                             q.cur[k], cb[k], a.W);
+    if (d.store)
+      gp::accept_store(a.acc, q.row[k], a.W, q.slot[k], q.bal[k], q.rlo[k],
+                       q.rhi[k]);
+    o_ack[k] = d.acked;
+    o_stale[k] = d.stale;
+    o_ow[k] = d.out_window;
   }
   const size_t B = (size_t)a.B;
   if (q.n == kLanes && (a.B % kLanes) == 0) {  // out rows 16-byte aligned

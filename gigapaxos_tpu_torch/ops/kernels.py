@@ -36,7 +36,15 @@ How the XLA idioms map to torch, exactly:
 
 The accept transition (HOT LOOP #1) is not written here: it dispatches
 to :mod:`gigapaxos_tpu_torch.ops.accept_cuda`, the hand-written Hopper
-kernel on a CUDA device and its plain torch version on the CPU.
+kernel on a CUDA device and its plain torch version on the CPU.  The
+runtime's fused waves (``accept_commit_p``, ``commit_p``,
+``propose_accept_self_p``, ``accept_reply_commit_self_p`` and
+``request_reply_p``) dispatch the same way, to the two kernels of
+:mod:`gigapaxos_tpu_torch.ops.wave_cuda` on a CUDA device (one launch a
+call) and to the torch bodies below on the CPU (:func:`acceptor_wave`,
+:func:`coordinator_wave`).  Those bodies are pure torch on any device
+(their accept step is ``accept_reference``), so they are also the
+kernels' yardstick on the card.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from typing import NamedTuple
 
 import torch
 
-from gigapaxos_tpu_torch.ops import accept_cuda
+from gigapaxos_tpu_torch.ops import accept_cuda, wave_cuda
 from gigapaxos_tpu_torch.ops.types import (ACC_BAL, ACC_RHI, ACC_RLO,
                                            ACC_SLOT, DEC_SLOT, EMITTED_BIT,
                                            FIELDS, NO_BALLOT, NO_SLOT,
@@ -482,14 +490,16 @@ def propose_accept_self_packed(state: ColumnarState, packed):
     valid = packed[4] != 0
     state, po = propose_batch(state, g, rlo, rhi, valid)
     gr = valid & po.granted
-    state, ao = accept_batch(state, g, po.slot, po.cbal, rlo, rhi, gr)
-    reply_bal = torch.where(ao.acked, po.cbal, ao.cur_bal)
+    ao = accept_cuda.accept_reference(state, g, po.slot, po.cbal, rlo, rhi,
+                                      gr)
+    acked, cur_bal = ao[0] != 0, ao[3]
+    reply_bal = torch.where(acked, po.cbal, cur_bal)
     state, ro = accept_reply_batch(state, g, po.slot, reply_bal, smidx,
-                                   ao.acked, gr)
+                                   acked, gr)
     return state, torch.stack([
         _i(po.granted), _i(po.rejected), _i(po.throttled), po.slot,
-        po.cbal, _i(gr & ao.acked), _i(ro.newly_decided),
-        _i(ro.preempted), ao.cur_bal])
+        po.cbal, _i(gr & acked), _i(ro.newly_decided),
+        _i(ro.preempted), cur_bal])
 
 
 def accept_reply_commit_self_packed(state: ColumnarState, packed):
@@ -517,26 +527,85 @@ def commit_packed(state: ColumnarState, packed):
                                _i(o.out_window), o.new_cursor])
 
 
-def request_reply_packed(state: ColumnarState, req, rep):
-    """Fused coordinator wave: :func:`propose_accept_self_packed` then
-    :func:`accept_reply_commit_self_packed` (they touch disjoint window
-    columns — see the JAX docstring)."""
-    state, pout = propose_accept_self_packed(state, req)
-    state, rout = accept_reply_commit_self_packed(state, rep)
-    return state, pout, rout
+# --------------------------------------------------------------------------
+# the runtime's fused waves: ONE [m, B] output per call, the first half's
+# rows then the second's; the Hopper kernels of ``wave_cuda`` on a CUDA
+# device (one launch), the torch bodies above on the CPU
+# --------------------------------------------------------------------------
 
 
-def accept_commit_packed(state: ColumnarState, acc, com):
-    """Fused acceptor wave: accepts, then commits, in the order the
-    manager's handlers run them."""
-    state, aout = accept_packed(state, acc)
-    state, cout = commit_packed(state, com)
-    return state, aout, cout
+def acceptor_wave_plain(state: ColumnarState, acc, com) -> torch.Tensor:
+    """The acceptor wave's torch bodies (the JAX module's
+    ``accept_commit_packed``: accepts, then commits, in the order the
+    manager's handlers run them): ``acc[6, B]`` (or None) through the
+    accept, then ``com[5, B]`` (or None) through the commit; returns
+    their outputs, ``[4|8, B]``."""
+    outs = []
+    if acc is not None:
+        outs.append(accept_cuda.accept_reference(
+            state, acc[0], acc[1], acc[2], acc[3], acc[4], acc[5] != 0))
+    if com is not None:
+        outs.append(commit_packed(state, com)[1])
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def coordinator_wave_plain(state: ColumnarState, req, rep) -> torch.Tensor:
+    """The coordinator wave's torch bodies (the JAX module's
+    ``request_reply_packed``): ``req[5, B]`` (or None) through
+    :func:`propose_accept_self_packed`, then ``rep[6, B]`` (or None)
+    through :func:`accept_reply_commit_self_packed` (they touch disjoint
+    window columns — see the JAX docstring); returns ``[9|18, B]``."""
+    outs = []
+    if req is not None:
+        outs.append(propose_accept_self_packed(state, req)[1])
+    if rep is not None:
+        outs.append(accept_reply_commit_self_packed(state, rep)[1])
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def acceptor_wave(state: ColumnarState, acc, com) -> torch.Tensor:
+    """The acceptor wave (:func:`acceptor_wave_plain`): the Hopper kernel
+    for a state on a CUDA device — one launch, or it raises — and the
+    torch bodies for one on the CPU."""
+    if state.acc.device.type == "cpu":
+        return acceptor_wave_plain(state, acc, com)
+    return wave_cuda.acceptor(state, acc, com)
+
+
+def coordinator_wave(state: ColumnarState, req, rep) -> torch.Tensor:
+    """The coordinator wave (:func:`coordinator_wave_plain`), dispatched
+    as :func:`acceptor_wave` is."""
+    if state.acc.device.type == "cpu":
+        return coordinator_wave_plain(state, req, rep)
+    return wave_cuda.coordinator(state, req, rep)
+
+
+def accept_commit_p(state: ColumnarState, acc, com):
+    out = acceptor_wave(state, acc, com)
+    return state, out[:4], out[4:]
+
+
+def commit_p(state: ColumnarState, packed):
+    return state, acceptor_wave(state, None, packed)
+
+
+def propose_accept_self_p(state: ColumnarState, packed):
+    return state, coordinator_wave(state, packed, None)
+
+
+def accept_reply_commit_self_p(state: ColumnarState, packed):
+    return state, coordinator_wave(state, None, packed)
+
+
+def request_reply_p(state: ColumnarState, req, rep):
+    out = coordinator_wave(state, req, rep)
+    return state, out[:9], out[9:]
 
 
 # --------------------------------------------------------------------------
 # entry points: the JAX package's jit names, as plain functions (torch
-# runs eagerly; the state is updated in place instead of donated)
+# runs eagerly; the state is updated in place instead of donated); the
+# fused waves' entry points are defined above
 # --------------------------------------------------------------------------
 
 accept = accept_batch
@@ -544,13 +613,8 @@ accept_reply = accept_reply_batch
 propose = propose_batch
 commit = commit_batch
 propose_p = propose_packed
-propose_accept_self_p = propose_accept_self_packed
-accept_reply_commit_self_p = accept_reply_commit_self_packed
 accept_p = accept_packed
 accept_reply_p = accept_reply_packed
-commit_p = commit_packed
-accept_commit_p = accept_commit_packed
-request_reply_p = request_reply_packed
 prepare = prepare_batch
 install_coordinator = install_coordinator_batch
 create_groups = create_groups_batch

@@ -34,7 +34,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from gigapaxos_tpu_torch.ops import accept_cuda, kernels
+from gigapaxos_tpu_torch.ops import accept_cuda, kernels, wave_cuda
 from gigapaxos_tpu_torch.ops.oracle import (OracleGroup, PValue,
                                             make_oracle_group)
 from gigapaxos_tpu_torch.ops.types import (FIELDS, NO_BALLOT, NO_SLOT,
@@ -493,14 +493,18 @@ def _collect_cols(outs: List[Tuple[torch.Tensor, int]],
     return np.concatenate(parts, axis=1)
 
 
-# One lane's slab launches a wave at a time in the process.  A wave is a
-# few hundred torch calls, each of which gives up the interpreter lock
-# and takes it back; with every lane's worker launching at once each
-# call waits its turn behind the others' and the process launches fewer
-# waves a second in all than one worker alone (PERF.md §5, the lanes
+# One lane's slab launches a wave at a time in the process.  A submit is
+# a few dozen torch calls (a plain wave's body a few hundred), each of
+# which gives up the interpreter lock and takes it back; with every
+# lane's worker launching at once each call waits its turn behind the
+# others'.  Without the lock, config 2 at four lanes fell into re-drive
+# storms in 3 of 5 runs on the wave kernels (PERF.md §5, the lanes
 # phase).  The launches only queue work: the lanes' waves still run side
 # by side on the card, and their collects wait outside the lock.
 _LANE_LAUNCH_LOCK = threading.Lock()
+# whether a lane's slab takes that lock, read when the slab is made
+# (``chip_smoke.py --lanes-ab`` measures phase 8 both ways)
+LANE_LAUNCH_LOCKED = True
 
 
 def _on_stream(method):
@@ -523,9 +527,13 @@ class ColumnarBackend(AcceptorBackend):
     Batches are padded to the bucket ladder {8, 64, 512, 4096} with
     invalid lanes masked and split into <=4096-lane chunks, exactly as
     the JAX engine does: chunk boundaries are linearization points, so
-    the same ladder keeps the two engines' states bit-identical.  Every
-    accept lane goes through the hand-written accept kernel on a CUDA
-    device (its plain torch version on the CPU).
+    the same ladder keeps the two engines' states bit-identical.  On a
+    CUDA device every plain accept wave is one launch of the hand-written
+    accept kernel a chunk, and every commit wave and fused wave
+    (``accept_commit``, ``propose_self``, ``accept_reply_commit_self``,
+    ``propose_self_reply``) one launch of a wave kernel a chunk
+    (``ops/wave_cuda.py``), with one host->device copy, one device->host
+    copy and no host sync; on the CPU each runs its plain torch version.
 
     ``lane`` (a lane's slab of :class:`ShardedColumnarBackend`) gives
     the slab a CUDA stream of its own, made and filled there, and every
@@ -546,8 +554,8 @@ class ColumnarBackend(AcceptorBackend):
         self._cuda = self.device.type == "cuda"
         self.stream = torch.cuda.Stream(self.device) \
             if lane and self._cuda else None
-        self._launch_lock = _LANE_LAUNCH_LOCK if lane \
-            else contextlib.nullcontext()
+        self._launch_lock = _LANE_LAUNCH_LOCK \
+            if lane and LANE_LAUNCH_LOCKED else contextlib.nullcontext()
         self._sfx = prof_suffix
         self._window = window
         self.capacity = capacity
@@ -557,9 +565,10 @@ class ColumnarBackend(AcceptorBackend):
                 else contextlib.nullcontext():
             self.state = make_state(capacity, window, self.device)
         if self._cuda:
-            # build the kernel at construction, not inside the first
+            # build the kernels at construction, not inside the first
             # wave (an nvcc run mid-serving reads as a latency spike)
             accept_cuda.accept.load()
+            wave_cuda.load()
 
     @property
     def window(self) -> int:
@@ -582,20 +591,32 @@ class ColumnarBackend(AcceptorBackend):
         v[:n] = True
         return self._dev(v)
 
-    def _packed(self, n, *cols, bucket=None):
-        """Stack batch columns into ONE padded [k, bucket] i32 tensor
-        with the valid mask as the last row — a single host->device
-        transfer per kernel call.  The staging buffer is fresh per wave
-        (on the CPU the tensor shares it)."""
-        b = bucket or _bucket(n)
-        out = np.empty((len(cols) + 1, b), np.int32)
-        for i, (col, fill) in enumerate(cols):
-            row = out[i]
-            row[:n] = col
-            row[n:] = fill
-        out[len(cols), :n] = 1  # valid mask
-        out[len(cols), n:] = 0
-        return self._dev(out)
+    def _stage(self, b, *halves) -> torch.Tensor:
+        """Stack each half's batch columns, padded to ``b`` lanes and
+        followed by its valid-mask row, into ONE [k, b] i32 tensor on
+        the engine's device — a single host->device transfer per chunk.
+        ``halves`` are ``(n, [(column, fill), ...])``.  On a CUDA device
+        the staging buffer is pinned and the copy does not block (the
+        caching host allocator keeps the buffer until the copy is done);
+        on the CPU the tensor shares the buffer."""
+        k = sum(len(cols) + 1 for _, cols in halves)
+        if self._cuda:
+            host = torch.empty((k, b), dtype=torch.int32, pin_memory=True)
+            out = host.numpy()
+        else:
+            out = np.empty((k, b), np.int32)
+        at = 0
+        for n, cols in halves:
+            for col, fill in cols:
+                out[at, :n] = col
+                out[at, n:] = fill
+                at += 1
+            out[at, :n] = 1  # valid mask
+            out[at, n:] = 0
+            at += 1
+        if self._cuda:
+            return host.to(self.device, non_blocking=True)
+        return torch.from_numpy(out)
 
     def _d2h(self, out: torch.Tensor) -> torch.Tensor:
         """Queue the device->host copy of a kernel output into a pinned
@@ -629,8 +650,8 @@ class ColumnarBackend(AcceptorBackend):
         with self._launch_lock:
             for a, bnd in _chunks(n):
                 m = bnd - a
-                _, o = kern(self.state, self._packed(
-                    m, *[(c[a:bnd], f) for c, f in cols]))
+                _, o = kern(self.state, self._stage(
+                    _bucket(m), (m, [(c[a:bnd], f) for c, f in cols])))
                 outs.append((self._d2h(o), m))
             ready = self._fence()
         RequestInstrumenter.span_end(sp, chunks=len(outs))
@@ -639,30 +660,33 @@ class ColumnarBackend(AcceptorBackend):
             DelayProfiler.update_total("eng.submit" + self._sfx, t0, n)
         return outs, ready
 
-    def _submit2(self, kern, n1, cols1, n2, cols2):
+    def _submit2(self, wave, split, n1, cols1, n2, cols2):
         """Dual-input fused dispatch, chunked like :meth:`_submit1` with
-        BOTH inputs sharing one bucket per chunk."""
+        BOTH inputs sharing one bucket per chunk: one host->device copy
+        of both inputs, ONE call of ``wave`` (``kernels.acceptor_wave``
+        or ``coordinator_wave``: one kernel launch on a CUDA device),
+        which writes both halves' outputs into one [k, bucket] tensor,
+        and one device->host copy of it; ``split`` is the first half's
+        output rows."""
         t0 = time.monotonic()
         sp = RequestInstrumenter.span_begin("eng.submit",
                                             lanes=n1 + n2, fused=True)
         cols1 = [(np.asarray(c), f) for c, f in cols1]
         cols2 = [(np.asarray(c), f) for c, f in cols2]
+        r1 = len(cols1) + 1
         outs1, outs2 = [], []
         with self._launch_lock:
             for a, bnd in _chunks(max(n1, n2)):
                 a1, b1 = min(a, n1), min(bnd, n1)
                 a2, b2 = min(a, n2), min(bnd, n2)
                 b = _bucket(max(b1 - a1, b2 - a2))
-                _, o1, o2 = kern(
-                    self.state,
-                    self._packed(b1 - a1,
-                                 *[(c[a1:b1], f) for c, f in cols1],
-                                 bucket=b),
-                    self._packed(b2 - a2,
-                                 *[(c[a2:b2], f) for c, f in cols2],
-                                 bucket=b))
-                outs1.append((self._d2h(o1), b1 - a1))
-                outs2.append((self._d2h(o2), b2 - a2))
+                packed = self._stage(
+                    b, (b1 - a1, [(c[a1:b1], f) for c, f in cols1]),
+                    (b2 - a2, [(c[a2:b2], f) for c, f in cols2]))
+                host = self._d2h(wave(self.state, packed[:r1],
+                                      packed[r1:]))
+                outs1.append((host[:split], b1 - a1))
+                outs2.append((host[split:], b2 - a2))
             ready = self._fence()
         RequestInstrumenter.span_end(sp, chunks=len(outs1))
         DelayProfiler.update_total("eng.submit", t0, n1 + n2)
@@ -765,12 +789,13 @@ class ColumnarBackend(AcceptorBackend):
     def accept_commit_submit(self, rows_a, slots_a, bals_a, reqs_a,
                              rows_c, slots_c, reqs_c) -> EngineWave:
         """ONE fused dispatch per chunk for the acceptor wave: accepts
-        then commits (``kernels.accept_commit_packed``)."""
+        then commits (``kernels.acceptor_wave``: one acceptor-wave kernel
+        launch on a CUDA device)."""
         na, nc = len(rows_a), len(rows_c)
         lo_a, hi_a = _split64(reqs_a)
         lo_c, hi_c = _split64(reqs_c)
         (outs_a, outs_c), ready = self._submit2(
-            kernels.accept_commit_p,
+            kernels.acceptor_wave, 4,
             na, [(rows_a, 0), (slots_a, NO_SLOT), (bals_a, NO_BALLOT),
                  (lo_a, 0), (hi_a, 0)],
             nc, [(rows_c, 0), (slots_c, NO_SLOT), (lo_c, 0),
@@ -828,14 +853,16 @@ class ColumnarBackend(AcceptorBackend):
     def propose_self_reply_submit(self, rows_p, reqs_p, self_midx,
                                   rows_r, slots_r, bals_r, senders_r,
                                   acked_r) -> EngineWave:
-        """Fused coordinator wave (``kernels.request_reply_p``): new
-        proposals + accept replies of the same worker batch.
+        """Fused coordinator wave (``kernels.coordinator_wave``, one
+        coordinator-wave kernel launch a chunk on a CUDA device; the
+        semantics of ``kernels.coordinator_wave_plain``): new proposals +
+        accept replies of the same worker batch.
         ``collect()`` returns what :meth:`propose_self` and
         :meth:`accept_reply_commit_self` return, as a pair."""
         np_, nr = len(rows_p), len(rows_r)
         lo_p, hi_p = _split64(reqs_p)
         (outs_p, outs_r), ready = self._submit2(
-            kernels.request_reply_p,
+            kernels.coordinator_wave, 9,
             np_, [(rows_p, 0), (lo_p, 0), (hi_p, 0), (self_midx, 0)],
             nr, [(rows_r, 0), (slots_r, NO_SLOT), (bals_r, NO_BALLOT),
                  (senders_r, 0), (np.asarray(acked_r, np.int32), 0)])
