@@ -25,8 +25,8 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    bodies on phase 5's and phase 8's slabs at every bucket over several
    seeds, with both halves and with each half alone, and on 4096 lanes
    on 64 rows — every state plane and every live output lane
-   bit-identical — with device times and the byte bound
-   (``backend.wave_bytes``), and one fused wave of each submitted under
+   bit-identical — with device times and a byte bound counted from
+   each wave's own data, and one fused wave of each submitted under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); then
    storm steps and SPI waves at a small size on the card against the
    same calls on the CPU (the plain path the CPU tests hold against the
@@ -110,8 +110,6 @@ lane against four.  ``--defaults`` runs phases 5 and 8 with failure
 detection and the congestion guard at the package defaults (phase 8
 pins them otherwise; the deactivator stays off) and reports what they
 did (answers, elections, sheds, agreement) rather than failing on it.
-``--lanes-ab`` runs phase 8 with and without each of the lanes' launch
-lock and one-sub-batch queue, between two runs of phase 5.
 """
 
 from __future__ import annotations
@@ -505,7 +503,8 @@ WAVE_FILLS = {
     "reply": (0, -1, -1, 0, 0),
 }
 # which halves each kernel takes, its output rows per half, and the
-# backend.wave_bytes names of (both halves, first alone, second alone)
+# packed waves' names (the JAX package's jits, the backend's waves) of
+# (both halves, first alone, second alone)
 WAVE_KERNELS = {
     "acceptor_wave": (("accept", "commit"), (4, 4),
                       ("accept_commit_p", "accept_p", "commit_p")),
@@ -679,15 +678,68 @@ def check_wave(name, base, halves, n, what):
     return max_err
 
 
-def time_wave(name, base, halves, variant, hbm):
+# the row words each half of a wave reads on the rows of its live lanes
+# (the propose, own accept and own vote of a request; the vote and own
+# commit of a reply)
+WAVE_ROW_READS = {
+    "accept": ("active", "bal", "exec_cursor"),
+    "commit": ("active", "exec_cursor"),
+    "request": ("active", "is_coord", "coord_active", "cbal", "next_slot",
+                "exec_cursor", "bal", "members"),
+    "reply": ("is_coord", "coord_active", "cbal", "members", "active",
+              "exec_cursor"),
+}
+
+
+def wave_bound_bytes(name, base, halves, after) -> int:
+    """Bytes the wave must move for this run's data, ``after`` being the
+    state its torch bodies left from ``base``: each packed input and
+    output row over the whole bucket, read or written once; each row
+    word a half reads (``WAVE_ROW_READS``) once for each distinct row of
+    its live lanes; the ``prop`` column of each distinct (row, slot) of
+    the live reply lanes; on each row that stored a decision, the ``dec``
+    slot words its contiguity scan reads (the cursor's advance and the
+    gap past it, at most W); and each state word the wave changed,
+    written once.  Padding lanes and lanes that store nothing add no
+    row traffic."""
+    kinds, outs, _ = WAVE_KERNELS[name]
+    W = base.W
+    nbytes = 0
+    rows = {}
+    for kind, h, r in zip(kinds, halves, outs):
+        if h is None:
+            continue
+        nbytes += 4 * (h.shape[0] + r) * h.shape[1]
+        lv = h[:, h[-1] != 0]
+        g = lv[0].long()
+        for f in WAVE_ROW_READS[kind]:
+            rows[f] = torch.cat([rows.get(f, g[:0]), g])
+        if kind == "reply":
+            slot = lv[1].long()
+            ok = slot >= 0
+            nbytes += 16 * (g[ok] * W + slot[ok] % W).unique().numel()
+    nbytes += sum(g.unique().numel() * getattr(base, f).element_size()
+                  for f, g in rows.items())
+    scanned = (after.dec != base.dec).flatten(1).any(dim=1)
+    adv = (after.exec_cursor - base.exec_cursor)[scanned].long()
+    nbytes += 4 * int(torch.clamp(adv + 1, max=W).sum())
+    nbytes += sum(int((getattr(after, f) != t).sum()) * t.element_size()
+                  for f, t in base.items())
+    return nbytes
+
+
+def time_wave(name, base, halves, hbm):
     """Kernel and plain device times of one call on ``base``'s state,
-    restored before each timed call, and the byte bound of the wave
-    (``backend.wave_bytes`` at this bucket)."""
+    restored before each timed call, and the byte bound of the wave on
+    these inputs (:func:`wave_bound_bytes`)."""
     from gigapaxos_tpu_torch.ops import kernels, wave_cuda
-    from gigapaxos_tpu_torch.paxos.backend import wave_bytes
     kern = getattr(wave_cuda, name.split("_")[0])
     plain = getattr(kernels, f"{name}_plain")
     st = clone_all(base)
+    after = clone_all(base)
+    plain(after, *halves)
+    nbytes = wave_bound_bytes(name, base, halves, after)
+    del after
     written = ("bal", "acc", "dec", "exec_cursor", "is_coord",
                "coord_active", "next_slot", "prop")
 
@@ -695,8 +747,6 @@ def time_wave(name, base, halves, variant, hbm):
         for f in written:
             getattr(st, f).copy_(getattr(base, f))
 
-    B = next(h for h in halves if h is not None).shape[1]
-    nbytes = wave_bytes(WAVE_KERNELS[name][2][variant], B, base.W)
     return {"ms": device_ms(lambda: kern(st, *halves), before=restore),
             "plain_ms": device_ms(lambda: plain(st, *halves),
                                   before=restore),
@@ -737,7 +787,7 @@ def phase_wave_parity(name_line):
                         checked += 1
                     if seed == PARITY_SEEDS[0]:
                         rows[f"{name}_{key}_{B}"] = dict(
-                            time_wave(name, base, both, 0, hbm), live=n)
+                            time_wave(name, base, both, hbm), live=n)
             del base
     # a contended chunk: 4096 lanes on 64 rows of the runtime's slab
     B, n_rows = CONTENDED
@@ -1317,6 +1367,11 @@ def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
         installs = sum(n.n_installs for n in nodes)
         redriven = sum(n.n_redriven for n in nodes)
         shed = sum(n.n_shed for n in nodes)
+        if strict and installs:
+            raise AssertionError(
+                f"runtime: {installs} coordinators installed during the "
+                f"load (a live peer suspected: spurious elections); "
+                f"re-driven {redriven}, shed {shed}")
         emu.stop()
         emu = None
         # a node's stop joins its threads with bounded waits; one still
@@ -1914,44 +1969,6 @@ def phase_lanes(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
     return out
 
 
-def phase_lanes_ab(line):
-    """Phase 8 with and without each of the lanes' two departures from the
-    reference — the process-wide launch lock
-    (``backend.LANE_LAUNCH_LOCKED``) and one sub-batch in a lane's queue
-    (``manager.LANE_QUEUE_DEPTH``; the reference holds four) — the four
-    settings in turn and then in reverse order, between two runs of
-    phase 5's one lane, in one process; prints each run's lines and each
-    setting's four-lane rate over the mean one-lane rate.  A four-lane
-    run that leaves requests unanswered is reported, not failed (its
-    rate counts what it answered)."""
-    from gigapaxos_tpu_torch.paxos import backend, manager
-    rts = [phase_runtime()]
-    _runtime_lines(rts[0], line)
-    settings = [(True, 1), (False, 1), (True, 4), (False, 4)]
-    rates = {}
-    try:
-        for locked, depth in settings + settings[::-1]:
-            backend.LANE_LAUNCH_LOCKED = locked
-            manager.LANE_QUEUE_DEPTH = depth
-            ln = phase_lanes(slab_bytes=rts[0]["memory"][0]["total_bytes"],
-                             strict=False)
-            tag = f"lanes-ab lock={'on' if locked else 'off'} queue={depth}"
-            _lanes_lines(ln, rts[0], line, tag)
-            rates.setdefault(tag, []).append(ln["res"]["throughput_rps"])
-    finally:
-        backend.LANE_LAUNCH_LOCKED = True
-        manager.LANE_QUEUE_DEPTH = 1
-    rts.append(phase_runtime())
-    _runtime_lines(rts[1], line, "runtime (again)")
-    one = statistics.fmean(r["res"]["throughput_rps"] for r in rts)
-    info("lanes-ab: " + json.dumps({
-        "one_lane_rps": [r["res"]["throughput_rps"] for r in rts],
-        "four_lanes_rps": rates,
-        "four_lanes_over_one": {t: statistics.fmean(v) / one
-                                for t, v in rates.items()},
-        "card": line}))
-
-
 def _failover_lines(fo, line):
     for when in ("pre", "post"):
         r = fo[when]
@@ -2081,10 +2098,6 @@ def main(argv=None) -> int:
                     "(phase 5 runs so in the whole run too) and report "
                     "what they did (answers, elections, sheds, agreement) "
                     "instead of failing on it")
-    ap.add_argument("--lanes-ab", action="store_true",
-                    help="run phase 5, then phase 8 with and without each "
-                    "of the lanes' launch lock and one-sub-batch queue, "
-                    "print their lines and exit")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         return fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -2128,10 +2141,6 @@ def main(argv=None) -> int:
             info(f"defaults: phases 5 and 8 at the package defaults; every "
                  f"request answered with status 0, the replicas in "
                  f"agreement and no election: {ok}")
-            return 0
-        if args.lanes_ab:
-            _build.build_all()
-            phase_lanes_ab(line)
             return 0
         t0 = time.perf_counter()
         secs = _build.build_all()
@@ -2241,6 +2250,7 @@ def main(argv=None) -> int:
             "parity": "bit-exact",
             "max_abs_err": wave_err,
             "lanes": max(RT_BUCKETS),
+            "live_lanes": top["live"],
             "ms": top["ms"],
             "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"],

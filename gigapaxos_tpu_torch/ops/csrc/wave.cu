@@ -44,11 +44,12 @@
 // halves touch disjoint window columns (the JAX docstring's window
 // argument); the barrier between them keeps the composition exact anyway.
 //
-// Bound: device-memory bytes and latency.  A lane moves ~100-200 B (its
-// packed inputs and outputs, its row's [G] words, one window column, and
-// for a commit the W slots of its dec row: backend.wave_bytes counts them),
-// some 1 MB at 4096 lanes, a third of a microsecond at 3.35 TB/s, and no
-// arithmetic to speak of.  What bounds a runtime chunk is latency: the
+// Bound: device-memory bytes and latency.  A live lane moves at most
+// ~100-200 B (its packed inputs and outputs, its row's [G] words, one
+// window column, and for a storing commit the dec slots its scan reads;
+// chip_smoke.py's wave_bound_bytes counts what a run's data needs), well
+// under 1 MB at 4096 lanes, a fraction of a microsecond at 3.35 TB/s, and
+// no arithmetic to speak of.  What bounds a runtime chunk is latency: the
 // launch, and a dozen dependent round trips to L2 and device memory across
 // the barriers, plus the run-rank sorts.
 //

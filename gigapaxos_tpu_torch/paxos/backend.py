@@ -498,13 +498,11 @@ def _collect_cols(outs: List[Tuple[torch.Tensor, int]],
 # which gives up the interpreter lock and takes it back; with every
 # lane's worker launching at once each call waits its turn behind the
 # others'.  Without the lock, config 2 at four lanes fell into re-drive
-# storms in 3 of 5 runs on the wave kernels (PERF.md §5, the lanes
-# phase).  The launches only queue work: the lanes' waves still run side
-# by side on the card, and their collects wait outside the lock.
+# storms or stalls in 4 of 6 runs on the wave kernels (PERF.md §5, the
+# lanes phase).  The launches only queue work: the lanes' waves still
+# run side by side on the card, and their collects wait outside the
+# lock.
 _LANE_LAUNCH_LOCK = threading.Lock()
-# whether a lane's slab takes that lock, read when the slab is made
-# (``chip_smoke.py --lanes-ab`` measures phase 8 both ways)
-LANE_LAUNCH_LOCKED = True
 
 
 def _on_stream(method):
@@ -554,8 +552,8 @@ class ColumnarBackend(AcceptorBackend):
         self._cuda = self.device.type == "cuda"
         self.stream = torch.cuda.Stream(self.device) \
             if lane and self._cuda else None
-        self._launch_lock = _LANE_LAUNCH_LOCK \
-            if lane and LANE_LAUNCH_LOCKED else contextlib.nullcontext()
+        self._launch_lock = _LANE_LAUNCH_LOCK if lane \
+            else contextlib.nullcontext()
         self._sfx = prof_suffix
         self._window = window
         self.capacity = capacity

@@ -87,10 +87,6 @@ FLAG_MISSING = 4
 FLAG_SAMPLED = pkt.Request.FLAG_SAMPLED
 
 _UNSET = object()  # cache-miss sentinel (None is a valid cached value)
-# sub-batches a lane's queue holds between the decode thread and the
-# lane's worker (the reference holds four; see _worker_loop_sharded),
-# read when a node starts (``chip_smoke.py --lanes-ab`` measures both)
-LANE_QUEUE_DEPTH = 1
 
 # wire-plane frame types the intake path special-cases (hot-loop
 # constants: one enum lookup at import, not per frame)
@@ -1777,8 +1773,7 @@ class PaxosNode:
         # socket's backlog into about four times as many small waves;
         # held back at one, it takes the backlog whole into the next
         # decode batch (PERF.md §5, the lanes phase)
-        procqs = [queue_mod.Queue(maxsize=LANE_QUEUE_DEPTH)
-                  for _ in range(S)]
+        procqs = [queue_mod.Queue(maxsize=1) for _ in range(S)]
         threads: List[threading.Thread] = []
 
         def emit_loop(emitq) -> None:

@@ -452,61 +452,3 @@ def test_lanes_wave_drive_on_cpu():
     for key in ("plain", "lane", "alone"):
         assert r[f"{key}_waves_per_s"] > 0 and r[f"{key}_wave_ms_median"] > 0
     assert (r["capacity"], r["threads"]) == (bd.LN_G, 3)
-
-
-# -- the lanes' rate on this host, both packages (not a test) --------------
-
-
-def lanes_ratio(n_groups=2000, capacity=4096, n_requests=1000, depth=128,
-                rounds=3):
-    """Config 2's drive cut to ``n_groups`` groups (capacity, requests
-    and depth as given), pipelined, fused waves, detection at 300 s, the
-    guard and the deactivator off, on this host's CPU: decided requests/s
-    at ``ENGINE_SHARDS`` 1 and 4, for the JAX package and for the port,
-    in turns, after one round that warms both up (``rounds`` counted),
-    with each package's S=4/S=1 ratio of the mean rates."""
-    from gigapaxos_tpu.paxos.interfaces import CounterApp as JaxCounter
-    rates = {(pkg, s): [] for pkg in ("jax", "port") for s in (1, SH)}
-    for r in range(rounds + 1):
-        for (pkg, s), got in rates.items():
-            port = pkg == "port"
-            cfg, keys = (Config, PC) if port else (JConfig, JPC)
-            cfg.set(keys.PIPELINE_WORKER, True)
-            cfg.set(keys.FUSE_WAVES, "auto")
-            cfg.set(keys.INTAKE_BACKLOG_LIMIT, 0)
-            cfg.set(keys.PAUSE_IDLE_S, 0.0)
-            cfg.set(keys.ENGINE_SHARDS, s)
-            if port:
-                cfg.set(keys.COLUMNAR_DEVICE, "cpu")
-            else:
-                cfg.set(keys.ENGINE_MESH, "off")
-            emu_cls = PaxosEmulation if port else JaxEmulation
-            logdir = tempfile.mkdtemp(prefix="gp_lanes_ratio_")
-            emu = emu_cls(logdir, n_nodes=3, n_groups=0,
-                          app_cls=ti.CounterApp if port else JaxCounter,
-                          capacity=capacity, window=16, sync_wal=False,
-                          failure_timeout_s=300.0)
-            try:
-                emu.create_groups(n_groups)
-                res = emu.run_load_fast(n_requests, concurrency=depth,
-                                        timeout=300.0)
-                assert res["ok"] == n_requests, res
-                if r:
-                    got.append(res["throughput_rps"])
-            finally:
-                emu.stop()
-                cfg.clear()
-                shutil.rmtree(logdir, ignore_errors=True)
-    mean = {k: float(np.mean(v)) for k, v in rates.items()}
-    return {"rates": {f"{p} S={s}": v for (p, s), v in rates.items()},
-            "ratio_s4_over_s1": {p: mean[(p, SH)] / mean[(p, 1)]
-                                 for p in ("jax", "port")},
-            "groups": n_groups, "capacity": capacity,
-            "requests": n_requests, "depth": depth, "cpus": os.cpu_count()}
-
-
-if __name__ == "__main__":
-    # JAX_PLATFORMS=cpu python -m tests.test_torch_lanes  (from the repo
-    # root): the lanes' S=4/S=1 rate ratio of both packages on this host
-    import json
-    print(json.dumps(lanes_ratio()))

@@ -220,3 +220,32 @@ def test_a_commit_that_closes_a_gap_advances_past_the_run():
     aout, cout = pair.run("acceptor_wave", "accept_commit_p", acc, com)
     assert aout[0, 0] == 1 and cout[0, 0] == 1
     assert cout[3, 0] == c + 6
+
+
+@pytest.mark.parametrize("kind", ["acceptor", "coordinator"])
+def test_wave_bound_counts_live_lanes_only(kind):
+    """``chip_smoke.wave_bound_bytes``, the byte bound phase 2 prints:
+    padding lanes add their packed input and output words and nothing
+    else, and a chunk with no live lane moves only those words."""
+    rng = np.random.default_rng(5)
+    host = chip_smoke.wave_host_state(G, W, rng)
+    name = f"{kind}_wave"
+    kinds, outs, _ = chip_smoke.WAVE_KERNELS[name]
+    plain = getattr(tk, f"{name}_plain")
+    base = state_from_numpy(host, device="cpu")
+    n = 40
+    cols = [chip_smoke.wave_half(h, host, n, rng) for h in kinds]
+
+    def bound(live, B):
+        halves = [chip_smoke.wave_packed(h, [a[:live] for a in c], live,
+                                         B, "cpu")
+                  for h, c in zip(kinds, cols)]
+        after = chip_smoke.clone_all(base)
+        plain(after, *halves)
+        io = sum(4 * (h.shape[0] + r) * B for h, r in zip(halves, outs))
+        return chip_smoke.wave_bound_bytes(name, base, halves, after), io
+
+    (small, io64), (big, io512) = bound(n, 64), bound(n, 512)
+    assert big - small == io512 - io64
+    assert small > io64
+    assert bound(0, 64) == (io64, io64)
