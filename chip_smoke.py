@@ -23,10 +23,15 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    accept then commit; the coordinator wave, propose, own accept and own
    vote, then the replies' votes and own commit) against their torch
    bodies on phase 5's and phase 8's slabs at every bucket over several
-   seeds, with both halves and with each half alone, and on 4096 lanes
-   on 64 rows — every state plane and every live output lane
-   bit-identical — with device times and a byte bound counted from
-   each wave's own data, and one fused wave of each submitted under
+   seeds, with both halves and with each half alone, and, each half
+   alone too, at the seams of their launch geometry (one CTA up to 512
+   lanes, one cluster of 8 CTAs above): 4096 lanes on 64 rows, on one
+   row, on 8 rows (a key repeats across the cluster's CTAs) and on rows
+   of their own (no key repeats), 512 live lanes in the last CTA's range
+   of 4096, and 512 of 512 lanes live — every state plane and every
+   live output lane bit-identical — with device times, a byte bound
+   counted from each wave's own data and the launch floor (an empty
+   kernel at the same geometry), and one fused wave of each submitted under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); then
    storm steps and SPI waves at a small size on the card against the
    same calls on the CPU (the plain path the CPU tests hold against the
@@ -92,7 +97,8 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    the storm (it keeps its torch bodies), of the accept kernel (plain
    accept waves) and the acceptor wave kernel (commits and fused acceptor
    waves) in the SPI phase, each wave kernel at least once in phases 5
-   and 8, and one of them at least after the kill and in each replay.
+   and 8, and one of them at least after the kill and in each replay;
+   phases 5 and 8 also print each wave kernel's launches by bucket.
 
 It prints one JSON line listing every kernel (route, source, the TPU
 kernel it replaces, launches on the main path, error against the plain
@@ -110,11 +116,17 @@ lane against four.  ``--defaults`` runs phases 5 and 8 with failure
 detection and the congestion guard at the package defaults (phase 8
 pins them otherwise; the deactivator stays off) and reports what they
 did (answers, elections, sheds, agreement) rather than failing on it.
+``--wave-ab DIR [--out FILE]`` times the wave kernels of an older
+checkout unpacked in DIR (``git archive <rev> gigapaxos_tpu_torch``)
+against this tree's in one process, in turns (parent, this, this,
+parent), on phase 2's timed chunks and each half alone, both held
+bit-exact first.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import re
@@ -123,6 +135,7 @@ import subprocess
 import sys
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -193,6 +206,9 @@ PARITY_SEEDS = (0, 1, 2)
 BIG_B = 1 << 21  # beyond the co-resident grid: grid-stride rounds
 CONTENDED = (4096, 64)  # lanes, rows
 TIMING_REPS = 30
+# device_ms's head start, in the card's clock cycles: long enough for
+# the host to enqueue a state restore of eight copies and a wave call
+SLEEP_CYCLES = 1_000_000
 FLUSH_BYTES = 128 << 20  # > 2x the H100's 50 MB L2
 # device-memory rate of the card for the byte bound (H100 SXM data
 # sheet; the PCIe part is slower)
@@ -212,11 +228,14 @@ KERNEL_NAMES = ("accept", "acceptor_wave", "coordinator_wave")
 
 
 def reset_launches() -> None:
-    """Every kernel wrapper's launch count to 0."""
+    """Every kernel wrapper's launch count to 0, and the wave kernels'
+    counts by bucket."""
     from gigapaxos_tpu_torch.ops import wave_cuda
     from gigapaxos_tpu_torch.ops.accept_cuda import accept
     for k in (accept,) + wave_cuda.KERNELS:
         k.launches = 0
+    for k in wave_cuda.KERNELS:
+        k.by_bucket = {}
 
 
 def launches() -> dict:
@@ -226,6 +245,14 @@ def launches() -> dict:
     out = {"accept": accept.launches}
     out.update({k.name: k.launches for k in wave_cuda.KERNELS})
     return out
+
+
+def bucket_launches() -> dict:
+    """The wave kernels' launches by the chunk's lane count (the
+    runtime's bucket), by kernel name."""
+    from gigapaxos_tpu_torch.ops import wave_cuda
+    return {k.name: dict(sorted(k.by_bucket.items()))
+            for k in wave_cuda.KERNELS}
 
 
 def require_waves(counts: dict, what: str, each: bool) -> None:
@@ -361,8 +388,9 @@ def l2_flusher():
 
 def device_ms(fn, reps=TIMING_REPS, before=None) -> float:
     """Median device time of one call, from CUDA events around it, with
-    the stream kept busy ahead of the call (``torch.cuda._sleep``) so
-    the host's launch overhead is not counted as device time.
+    the stream kept busy ahead of the call (``torch.cuda._sleep``, long
+    enough for the host to enqueue ``before``, the events and the call)
+    so the host's launch overhead is not counted as device time.
     ``before`` (say, an L2 flush) runs ahead of each timed call."""
     fn()
     torch.cuda.synchronize()
@@ -370,7 +398,7 @@ def device_ms(fn, reps=TIMING_REPS, before=None) -> float:
     for _ in range(reps):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(SLEEP_CYCLES)
         if before is not None:
             before()
         t0.record()
@@ -585,13 +613,18 @@ def _ids(rng, n):
             for _ in range(2))
 
 
-def wave_half(half, host, n, rng, rows=None):
+def wave_half(half, host, n, rng, rows=None, unique=False):
     """The columns of ``n`` live lanes of one half of a wave, drawn on
-    ``rows`` (a contended chunk) or on every row (a runtime chunk)."""
+    ``rows`` (a contended chunk) or on every row (a runtime chunk); with
+    ``unique``, each lane on a row of its own, so that no key of a run
+    rank repeats."""
     from gigapaxos_tpu_torch.ops.types import NO_SLOT
     G, W = host["bal"].shape[0], host["acc"].shape[1]
     cur, members = host["exec_cursor"], host["members"]
     pool = np.arange(G) if rows is None else rows
+    if unique:
+        return _unique_half(half, host, rng.choice(pool, n, replace=False),
+                            rng)
     per_row = W if rows is None else -(-n // len(pool))
     if half == "accept":  # stale, in-window and beyond; ballots around
         g, off = _distinct_pairs(rng, pool, per_row + 8, n, -4)
@@ -630,6 +663,33 @@ def wave_half(half, host, n, rng, rows=None):
     return [g, slot, bal, sender, acked.astype(np.int32)]
 
 
+def _unique_half(half, host, g, rng):
+    """``wave_half``'s mix with one lane a row of ``g``."""
+    from gigapaxos_tpu_torch.ops.types import NO_SLOT
+    n, W = len(g), host["acc"].shape[1]
+    g = g.astype(np.int32)
+    cur, members = host["exec_cursor"][g], host["members"][g]
+    if half == "accept":
+        bal = host["bal"][g] + rng.choice([-4096, 0, 0, 4096], n)
+        return [g, (cur + rng.integers(-4, W + 4, n)).astype(np.int32),
+                bal.astype(np.int32), *_ids(rng, n)]
+    if half == "commit":
+        off = np.where(rng.random(n) < 0.3, 0, rng.integers(-2, W + 2, n))
+        return [g, (cur + off).astype(np.int32), *_ids(rng, n)]
+    if half == "request":
+        smidx = (rng.integers(0, 1 << 10, n) % members).astype(np.int32)
+        return [g, *_ids(rng, n), smidx]
+    span = np.maximum(host["next_slot"][g] - cur, 1)  # a proposed column
+    slot = np.where(rng.random(n) < 0.05, NO_SLOT,
+                    cur + rng.integers(0, 1 << 20, n) % span)
+    sender = rng.integers(0, 1 << 10, n) % members
+    cb = host["cbal"][g]
+    acked = rng.random(n) < 0.85
+    bal = np.where(acked | (rng.random(n) < 0.7), cb, cb + 4096)
+    return [g, slot.astype(np.int32), bal.astype(np.int32),
+            sender.astype(np.int32), acked.astype(np.int32)]
+
+
 def wave_packed(half, cols, n, B, dev):
     """One half's packed [k+1, B] input on ``dev``, padded as
     ``ColumnarBackend`` pads a wave."""
@@ -642,29 +702,70 @@ def wave_packed(half, cols, n, B, dev):
     return torch.from_numpy(out).to(dev)
 
 
+# phase 2's chunks at the seams of the wave kernels' geometry: (what,
+# live lanes, bucket, how the lanes are drawn).  The contended chunk;
+# 4096 lanes on one row and on 8 rows (a key repeats across the
+# cluster's CTAs); 4096 lanes on rows of their own (no key of a run rank
+# repeats); live lanes only in the last CTA's range; bucket 512 (one CTA
+# of 512 threads) with every lane live.
+WAVE_SEAMS = (
+    (f"{CONTENDED[0]} lanes on {CONTENDED[1]} rows", CONTENDED[0],
+     CONTENDED[0], {"rows": CONTENDED[1]}),
+    ("4096 lanes on one row", 4096, 4096, {"rows": 1}),
+    ("4096 lanes on 8 rows", 4096, 4096, {"rows": 8}),
+    ("4096 lanes, no key repeated", 4096, 4096, {"unique": True}),
+    ("512 live lanes in the last CTA's range of 4096", 512, 4096,
+     {"last": True}),
+    ("512 of 512 lanes live", 512, 512, {}),
+)
+
+
+def seam_rows(host, rng, how):
+    """The rows a seam chunk's lanes are drawn on (active coordinators),
+    or None for every row."""
+    if "rows" not in how:
+        return None
+    return rng.choice(np.flatnonzero(host["active"] & host["coord_active"]),
+                      how["rows"], replace=False)
+
+
+def seam_halves(kinds, host, rng, n, B, how, rows, dev):
+    """The packed halves of a seam chunk (``WAVE_SEAMS``), and its live
+    lanes: the first ``n``, or a slice of the last ``n`` (``last``)."""
+    halves = [wave_packed(h, wave_half(h, host, n, rng, rows=rows,
+                                       unique=how.get("unique", False)),
+                          n, B, dev) for h in kinds]
+    if how.get("last"):
+        return ([torch.roll(h, B - n, dims=1).contiguous() for h in halves],
+                slice(B - n, B))
+    return halves, n
+
+
 def clone_all(st):
     """The state with every plane copied."""
     return dataclasses.replace(st, **{f: t.clone() for f, t in st.items()})
 
 
-def check_wave(name, base, halves, n, what):
-    """The wave kernel and its torch bodies (``kernels.*_wave_plain``) on
-    identical clones of ``base``: every state plane and the live lanes of
-    every output row must be bit-identical.  Returns the max abs error
-    (0)."""
+def check_wave(name, base, halves, n, what, kern=None):
+    """The wave kernel (``kern``, else the wrapper of this tree's) and
+    its torch bodies (``kernels.*_wave_plain``) on identical clones of
+    ``base``: every state plane and the live lanes of every output row
+    (the first ``n``, or the lanes an index ``n`` selects) must be
+    bit-identical.  Returns the max abs error (0)."""
     from gigapaxos_tpu_torch.ops import kernels, wave_cuda
-    kern = getattr(wave_cuda, name.split("_")[0])
+    kern = kern or getattr(wave_cuda, name.split("_")[0])
     plain = getattr(kernels, f"{name}_plain")
     st_k, st_p = clone_all(base), clone_all(base)
     out_k = kern(st_k, *halves)
     out_p = plain(st_p, *halves)
     torch.cuda.synchronize()
     rows = WAVE_KERNELS[name][1]
+    lanes = slice(0, n) if isinstance(n, int) else n
     live = []
     at = 0
     for h, r in zip(halves, rows):
         if h is not None:
-            live.append((out_k[at:at + r, :n], out_p[at:at + r, :n]))
+            live.append((out_k[at:at + r, lanes], out_p[at:at + r, lanes]))
             at += r
     max_err = 0
     pairs = [(f"out[{i}]", a, b) for i, (a, b) in enumerate(live)] + \
@@ -728,10 +829,24 @@ def wave_bound_bytes(name, base, halves, after) -> int:
     return nbytes
 
 
+def restorer(st, base):
+    """A callable that copies back into ``st`` every plane of ``base`` a
+    wave writes."""
+    written = ("bal", "acc", "dec", "exec_cursor", "is_coord",
+               "coord_active", "next_slot", "prop")
+
+    def restore():
+        for f in written:
+            getattr(st, f).copy_(getattr(base, f))
+    return restore
+
+
 def time_wave(name, base, halves, hbm):
     """Kernel and plain device times of one call on ``base``'s state,
-    restored before each timed call, and the byte bound of the wave on
-    these inputs (:func:`wave_bound_bytes`)."""
+    restored before each timed call, the byte bound of the wave on these
+    inputs (:func:`wave_bound_bytes`), and the launch floor: an empty
+    kernel at the call's geometry and shared memory
+    (``WaveKernel.floor``), timed the same way."""
     from gigapaxos_tpu_torch.ops import kernels, wave_cuda
     kern = getattr(wave_cuda, name.split("_")[0])
     plain = getattr(kernels, f"{name}_plain")
@@ -740,16 +855,12 @@ def time_wave(name, base, halves, hbm):
     plain(after, *halves)
     nbytes = wave_bound_bytes(name, base, halves, after)
     del after
-    written = ("bal", "acc", "dec", "exec_cursor", "is_coord",
-               "coord_active", "next_slot", "prop")
-
-    def restore():
-        for f in written:
-            getattr(st, f).copy_(getattr(base, f))
-
+    restore = restorer(st, base)
+    B = next(h.shape[1] for h in halves if h is not None)
     return {"ms": device_ms(lambda: kern(st, *halves), before=restore),
             "plain_ms": device_ms(lambda: plain(st, *halves),
                                   before=restore),
+            "floor_ms": device_ms(lambda: kern.floor(B), before=restore),
             "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3}
 
 
@@ -757,10 +868,11 @@ def phase_wave_parity(name_line):
     """The two wave kernels against their torch bodies on the card, on
     phase 5's 2^17-row slab and phase 8's 2^15-row lane slab, at every
     bucket of the runtime's ladder over ``PARITY_SEEDS``, with both
-    halves live and with each half empty, and on a contended chunk
-    (``CONTENDED``: 4096 lanes on 64 rows); times at every bucket on
-    both slabs (seed 0, both halves).  Every state plane and every live
-    output lane must be bit-identical."""
+    halves live and with each half empty, and on the runtime's slab in
+    the chunks at the seams of the kernels' geometry (``WAVE_SEAMS``,
+    the contended chunk first); times at every bucket on both slabs
+    (seed 0, both halves) beside the launch floor.  Every state plane
+    and every live output lane must be bit-identical."""
     from gigapaxos_tpu_torch.ops.types import state_from_numpy
     hbm = HBM_BYTES_PER_S["pcie" if "PCIe" in name_line else "default"]
     dev = torch.device("cuda")
@@ -789,29 +901,90 @@ def phase_wave_parity(name_line):
                         rows[f"{name}_{key}_{B}"] = dict(
                             time_wave(name, base, both, hbm), live=n)
             del base
-    # a contended chunk: 4096 lanes on 64 rows of the runtime's slab
-    B, n_rows = CONTENDED
+    # the seams of the kernels' geometry, on the runtime's slab
     rng = np.random.default_rng(7)
     host = wave_host_state(RT_CAPACITY, RT_WINDOW, rng)
     base = state_from_numpy(host, dev)
-    few = rng.choice(np.flatnonzero(host["active"] & host["coord_active"]),
-                     n_rows, replace=False)
-    for name, (kinds, _, _) in WAVE_KERNELS.items():
-        both = [wave_packed(h, wave_half(h, host, B, rng, rows=few), B, B,
-                            dev) for h in kinds]
-        for halves in (both, [both[0], None], [None, both[1]]):
-            max_err = max(max_err, check_wave(
-                name, base, halves, B, f"contended, {B} lanes on {n_rows} "
-                f"rows, halves {[h is not None for h in halves]}"))
-            checked += 1
+    for what, n, B, how in WAVE_SEAMS:
+        few = seam_rows(host, rng, how)
+        for name, (kinds, _, _) in WAVE_KERNELS.items():
+            both, live = seam_halves(kinds, host, rng, n, B, how, few, dev)
+            for halves in (both, [both[0], None], [None, both[1]]):
+                max_err = max(max_err, check_wave(
+                    name, base, halves, live, f"{what}, halves "
+                    f"{[h is not None for h in halves]}"))
+                checked += 1
     del base
     torch.cuda.empty_cache()
     for k, r in rows.items():
         info(f"wave {k}: kernel {r['ms']:.4f} ms, plain "
              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-             f"({r['bytes']} B at {hbm / 1e12:.2f} TB/s), {r['live']} live "
-             f"lanes, bit-exact [{name_line}]")
+             f"({r['bytes']} B at {hbm / 1e12:.2f} TB/s), floor_ms "
+             f"{r['floor_ms']:.4f} (an empty kernel at its geometry), "
+             f"{r['live']} live lanes, bit-exact [{name_line}]")
     return rows, max_err, checked
+
+
+def phase_wave_ab(parent, name_line, out_path=None):
+    """This tree's wave kernels against an older checkout's (``parent``:
+    a directory holding its ``gigapaxos_tpu_torch``, say one unpacked by
+    ``git archive``), built from its ``csrc/wave.cu`` with this tree's
+    flags and launched through this tree's wrappers (the C interface is
+    the same), in one process on one card.  On phase 2's timed chunks
+    (seed 0, every bucket, both slabs) and on each half alone, both
+    kernels must be bit-identical to the torch bodies; then each is timed
+    in turns, parent, this, this, parent (``device_ms``, the state
+    restored before each call).  Prints a line a chunk; writes the rows
+    as JSON to ``out_path`` if given."""
+    from gigapaxos_tpu_torch.ops import _build, wave_cuda
+    from gigapaxos_tpu_torch.ops.types import state_from_numpy
+    src = Path(parent) / "gigapaxos_tpu_torch" / "ops" / "csrc" / "wave.cu"
+    so = _build.BUILD_DIR / "parent" / "wave.so"
+    log = _build.build_source(src, so)
+    for ln in log.splitlines():
+        if "registers" in ln or "spill" in ln:
+            info(f"ptxas parent wave: {ln.strip()}")
+    lib = wave_cuda.bind(ctypes.CDLL(str(so)))
+    dev = torch.device("cuda")
+    rows = []
+    for G, key in ((RT_CAPACITY, "rt"), (LANE_CAPACITY, "lane")):
+        rng = np.random.default_rng(100 + PARITY_SEEDS[0])
+        host = wave_host_state(G, RT_WINDOW, rng)
+        base = state_from_numpy(host, dev)
+        for name, (kinds, _, _) in WAVE_KERNELS.items():
+            new = getattr(wave_cuda, name.split("_")[0])
+            old = wave_cuda.WaveKernel(new.name, new._symbol, new.in_rows,
+                                       new.out_rows, new.tables, lib=lib)
+            for B in RT_BUCKETS:
+                n = int(rng.integers(B // 8 + 1, B + 1))
+                both = [wave_packed(h, wave_half(h, host, n, rng), n, B,
+                                    dev) for h in kinds]
+                for halves, which in ((both, "both"),
+                                      ([both[0], None], kinds[0]),
+                                      ([None, both[1]], kinds[1])):
+                    what = f"{key} slab, B={B}, {n} live, {which}"
+                    for k in (old, new):
+                        check_wave(name, base, halves, n, what, kern=k)
+                    st = clone_all(base)
+                    restore = restorer(st, base)
+                    ms = [device_ms(lambda: k(st, *halves), before=restore)
+                          for k in (old, new, new, old)]
+                    row = {"kernel": name, "slab": key, "B": B, "live": n,
+                           "halves": which, "parent_ms": [ms[0], ms[3]],
+                           "this_ms": [ms[1], ms[2]],
+                           "ratio": (ms[0] + ms[3]) / (ms[1] + ms[2])}
+                    rows.append(row)
+                    info(f"wave ab {name} {what}: parent {ms[0]:.4f}, this "
+                         f"{ms[1]:.4f}, this {ms[2]:.4f}, parent "
+                         f"{ms[3]:.4f} ms; parent/this {row['ratio']:.2f} "
+                         f"[{name_line}]")
+        del base
+    torch.cuda.empty_cache()
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(json.dumps(
+            {"card": name_line, "rows": rows}, indent=1))
+    return rows
 
 
 def wave_submit_no_sync():
@@ -1360,6 +1533,7 @@ def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
                                 timeout=RT_TIMEOUT_S)
         answered = _settle(nodes, res, n_requests, strict, "runtime")
         counts = launches()
+        buckets = bucket_launches()
         totals = {k: v for k, v in DelayProfiler.totals().items()
                   if k.startswith(("w.", "eng.submit", "eng.collect"))}
         # elections won mid-phase (0 unless a peer was suspected) and
@@ -1413,8 +1587,8 @@ def phase_runtime(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
     return {"groups": n_groups, "requests": n_requests, "depth": depth,
             "installs": installs, "redriven": redriven, "shed": shed,
             "create_s": create_s, "res": res, "launches": counts,
-            "totals": totals, "memory": mems, "detection": detection,
-            "answered": answered, "agree": agree,
+            "buckets": buckets, "totals": totals, "memory": mems,
+            "detection": detection, "answered": answered, "agree": agree,
             "groups_with_traffic": len(apps[0])}
 
 
@@ -1890,6 +2064,7 @@ def phase_lanes(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
         out["answered"] = _settle(nodes, res, n_requests, strict, "lanes")
         out["res"] = res
         out["launches"] = launches()
+        out["buckets"] = bucket_launches()
         info(f"lanes: the load: {json.dumps(res)}; installs "
              f"{sum(n.n_installs for n in nodes)}, shed "
              f"{sum(n.n_shed for n in nodes)}, re-driven "
@@ -2033,6 +2208,8 @@ def _runtime_lines(rt, line, tag="runtime"):
          + f" a request; coordinator installs (elections won) "
          f"{rt['installs']}; accepts re-driven {rt['redriven']}; requests "
          f"shed {rt['shed']}")
+    info(f"{tag}: wave kernel launches by bucket (lanes: launches) "
+         f"{json.dumps(rt['buckets'])}")
     for k in sorted(rt["totals"]):
         wall, calls, items = rt["totals"][k][:3]
         info(f"{tag} profiler {k}: {wall:.4f} s over {calls} calls, "
@@ -2055,6 +2232,8 @@ def _lanes_lines(ln, rt, line, tag="lanes"):
              f"launches {d['launches']}; failure timeout "
              f"{d['detection']['failure_timeout_s']} s, backlog limit "
              f"{d['detection']['backlog_limit']} ({line})")
+    info(f"{tag}: wave kernel launches by bucket (lanes: launches), "
+         f"{LANES} lanes {json.dumps(ln['buckets'])}")
     for k, lane in ln["lanes"].items():
         info(f"{tag}: lane {k}: " + ", ".join(
             f"{t}@{k} {v[0]:.4f} s over {v[1]} calls, {v[2]} items"
@@ -2080,6 +2259,16 @@ def _lanes_lines(ln, rt, line, tag="lanes"):
          "up")
 
 
+def _ptxas_lines(names):
+    """What ptxas said of each built library's kernels: the entry, its
+    registers, shared memory and spills."""
+    from gigapaxos_tpu_torch.ops import _build
+    for name in names:
+        for ln in _build.ptxas_report(name).splitlines():
+            if "registers" in ln or "spill" in ln or "entry" in ln:
+                info(f"ptxas {name}: {ln.strip()}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runtime-only", choices=("cuda", "cpu"),
@@ -2092,6 +2281,12 @@ def main(argv=None) -> int:
     ap.add_argument("--lanes-only", action="store_true",
                     help="run only phases 5 and 8 (one engine lane, "
                     "then four), print their lines and exit")
+    ap.add_argument("--wave-ab", metavar="DIR",
+                    help="time the wave kernels of an older checkout "
+                    "unpacked in DIR against this tree's, in turns on one "
+                    "card (both bit-exact first), and exit")
+    ap.add_argument("--out", help="with --wave-ab: write its rows here as "
+                    "JSON")
     ap.add_argument("--defaults", action="store_true",
                     help="run only phases 5 and 8 with failure detection "
                     "and the congestion guard at the package defaults "
@@ -2109,6 +2304,11 @@ def main(argv=None) -> int:
         line = card_line()
         info(f"card: {line}; torch {torch.__version__}, cuda "
              f"{torch.version.cuda}, python {sys.version.split()[0]}")
+        if args.wave_ab:
+            _ptxas_lines(_build.build_all())
+            phase_wave_ab(args.wave_ab, line, args.out)
+            info(f"wave-ab: {args.wave_ab} against this tree")
+            return 0
         if args.runtime_only:
             _build.build_all()
             _runtime_lines(phase_runtime(device=args.runtime_only), line)
@@ -2146,10 +2346,7 @@ def main(argv=None) -> int:
         secs = _build.build_all()
         info(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})}"
              f" ({time.perf_counter() - t0:.2f} s wall, one nvcc a source)")
-        for name in secs:
-            for ln in _build.ptxas_report(name).splitlines():
-                if "registers" in ln or "spill" in ln:
-                    info(f"ptxas {name}: {ln.strip()}")
+        _ptxas_lines(secs)
 
         timing, max_err = phase_parity(line)
         wtiming, wave_err, wave_checked = phase_wave_parity(line)
@@ -2158,7 +2355,8 @@ def main(argv=None) -> int:
              f"chunks: the runtime's slab (G={RT_CAPACITY}) and a lane's "
              f"slab (G={LANE_CAPACITY}) at every bucket {list(RT_BUCKETS)}, "
              f"seeds {list(PARITY_SEEDS)}, both halves live and each half "
-             f"empty; and {CONTENDED[0]} lanes on {CONTENDED[1]} rows")
+             f"empty; and the geometry's seams, each half alone too: "
+             + "; ".join(w for w, *_ in WAVE_SEAMS))
         wave_submit_no_sync()
         info("parity: a fused acceptor wave and a fused coordinator wave "
              "submitted under torch.cuda.set_sync_debug_mode('error'): no "
@@ -2255,6 +2453,7 @@ def main(argv=None) -> int:
             "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"],
             "bound_by": "bytes",
+            "floor_ms": top["floor_ms"],
             "library_ms": None,
             "by_lanes": {k[len(name) + 1:]: v for k, v in wtiming.items()
                          if k.startswith(name)},

@@ -98,6 +98,19 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return secs
 
 
+def build_source(src: Path, out: Path) -> str:
+    """Build one source file (say, an older checkout's) into ``out`` with
+    the flags above; returns the compiler's output, raises on failure."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    text = proc.stdout.decode(errors="replace")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src} (exit "
+                           f"{proc.returncode}):\n{text}")
+    return text
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``name``, built first if needed."""
     with _lock:

@@ -37,34 +37,79 @@
 //   fresh vote | barrier | re-gather the vote word, popcount against
 //   members/2+1; dedup quorum lanes of one (g, slot) by run rank; atomicAdd
 //   EMITTED_BIT once per column; a nack above cbal clears is_coord and
-//   coord_active | barrier (the next step sees the preemption).
+//   coord_active.
 // The coordinator wave runs propose, the own accept (granted lanes, ballot
 // cbal), the own vote (reply ballot cbal if acked, else the promise), then
-// the replies' vote and the commit of their newly decided lanes.  The two
-// halves touch disjoint window columns (the JAX docstring's window
-// argument); the barrier between them keeps the composition exact anyway.
+// the replies' vote and the commit of their newly decided lanes.  Each
+// step's gather waits on its own scatter through a barrier; between two
+// steps a barrier stands where a lane of the later step may touch a word
+// another lane of the earlier one wrote: between the two halves (the second
+// half's vote sees the first half's preemption), and between propose and
+// the own vote (the prop columns), which the own accept's barrier is.  The
+// other steps touch disjoint planes (accept: bal, acc; commit: dec,
+// exec_cursor; vote: prop votes, flags), and each lane hands its outputs to
+// the next step in registers.
 //
-// Bound: device-memory bytes and latency.  A live lane moves at most
-// ~100-200 B (its packed inputs and outputs, its row's [G] words, one
-// window column, and for a storing commit the dec slots its scan reads;
-// chip_smoke.py's wave_bound_bytes counts what a run's data needs), well
-// under 1 MB at 4096 lanes, a fraction of a microsecond at 3.35 TB/s, and
-// no arithmetic to speak of.  What bounds a runtime chunk is latency: the
-// launch, and a dozen dependent round trips to L2 and device memory across
-// the barriers, plus the run-rank sorts.
+// Bound.  Bytes: a live lane moves at most ~100-200 B (its packed inputs
+// and outputs, its row's [G] words, one window column, and for a storing
+// commit the dec slots its scan reads; chip_smoke.py's wave_bound_bytes
+// counts what a run's data needs), under 1 MB at 4096 lanes, a fraction of
+// a microsecond at 3.35 TB/s, and no arithmetic to speak of.  What bounds a
+// chunk is latency: the launch, then a chain of dependent round trips to
+// L2 or device memory and of barriers.  Each half gathers its lane inputs
+// in one round trip and its row words in a second; then accept 1 round
+// trip (bal after the raises) and 1 barrier; commit 2 (the scan, the new
+// cursor) and 2 barriers; propose 2 barriers (the tables' clear, the run
+// rank); vote 2 round trips (the column, the vote word) and 2 barriers.
+// Both halves of a wave gather together (what the first half writes, the
+// second re-reads after the barrier between them: the flags and the prop
+// column).  Acceptor wave, both halves: 5 round trips, 4 barriers.
+// Coordinator wave: 9 round trips, 10 barriers (7 in a one-warp CTA, which
+// ranks without tables), and in a cluster up to 3 rounds of lookups in
+// the other CTAs' tables.
 //
-// Design: ONE CTA per chunk (1024 threads, each owning lanes tid, tid+1024,
-// tid+2048, tid+3072), so every barrier is __syncthreads (a __threadfence
-// first, so plain stores have reached L2 before other threads read them
-// with ld.cg) and no cooperative launch is needed.  The run rank is a
-// bitonic sort in shared memory of the masked lanes' (key, lane) pairs,
-// compacted first, so the sort is as long as the lanes it ranks (none for
-// fewer than two); lane order breaks ties, which makes the rank the stable
-// sort's.  A lane's rank is its sorted position minus the first position
-// of its key.  Planes a wave writes are read with __ldcg (L2, coherent
-// across the CTA's threads), the ones it only reads by the read-only path.
-// Lane inputs are read where used rather than held, to keep each thread
-// within the 64 registers that 1024 threads leave it.
+// Design:
+// - One lane a thread.  A chunk of at most kCtaLanes lanes runs as ONE CTA
+//   of as many threads as lanes, rounded up to a warp (buckets 8, 64, 512:
+//   32, 64, 512 threads); a larger one as ONE thread-block cluster of
+//   kClusterCtas CTAs on neighbouring SMs (bucket 4096: 8 x 512), launched
+//   with cudaLaunchKernelEx's cluster attribute.  The launch geometry is
+//   gp_wave_geometry's; the wrapper checks it against its own.
+// - Barriers: inside one CTA, __syncthreads alone (bar.sync orders the
+//   CTA's memory operations; no fence).  Across a cluster, the hardware
+//   cluster barrier (barrier.cluster.arrive.release / wait.acquire, through
+//   cooperative_groups' cluster sync), not a grid sync.  Planes a wave
+//   writes are read through L2 (__ldcg), the ones it only reads by the
+//   read-only path.
+// - The contiguity scan issues the kScan slot words of a row at once (W
+//   independent loads, one round trip) and counts the leading matches.
+// - The run rank without a sort: inside a warp __match_any_sync gives each
+//   lane its peers, and __popc of the earlier peers its rank there.  One
+//   leader a key and warp enters the key in the CTA's shared-memory hash
+//   table (linear probing, 2x as many slots as threads), with a count of
+//   its lanes in each warp.  After one barrier a lane's rank is its rank in
+//   the warp, plus its key's lanes in the CTA's earlier warps (one table
+//   read), plus, in a cluster, its key's lanes in the earlier CTAs: one
+//   lookup in each of their tables through distributed shared memory, the
+//   first probes of all of them issued together.  A key found in no other
+//   warp or CTA adds nothing.  Lane order breaks no tie (the lanes of a key
+//   are counted, never ordered), so the rank is the stable lexsort's, with
+//   any mix of repeated keys, up to 4096 lanes on one row.  A one-warp CTA
+//   (bucket 8) needs no table.
+// - Each step keeps in registers what no earlier step of the wave can have
+//   changed (its lane inputs, row, active, members, cbal, and the flags
+//   before the first vote) and re-reads what an earlier step writes
+//   (bal, exec_cursor after the commit's advance, the prop column and vote
+//   word, next_slot) after the barrier that orders it.
+//
+// Registers, shared memory and spills (-Xptxas -v, sm_90a, CUDA 12.8): the
+// acceptor wave 53 registers in one CTA and in a cluster, the coordinator
+// wave 48 in one CTA and 74 in a cluster (its lookups in the other CTAs'
+// tables), the launch-floor kernel 4; no spills, no stack, no static
+// shared memory.  The coordinator wave's tables are dynamic shared memory,
+// 32 B a slot, twice as many slots as threads, a table for propose and the
+// own vote with a request half and one for the replies' vote: 96 KB a CTA
+// at 512 threads with both halves, 12 KB at 64, none at 32.
 //
 // Preconditions (as in kernels.py): at most one lane writes a given
 // (row, slot) per batch; valid lanes name rows in [0, G) (a valid lane
@@ -74,18 +119,25 @@
 // C interface for ctypes: every pointer and the stream as void*, each
 // function returns a cudaError_t as int.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "accept_dev.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kMaxLanes = 4096;
-constexpr int kLPT = kMaxLanes / kThreads;  // lanes a thread owns
-constexpr int kEmitted = 1 << 30;           // types.py EMITTED_BIT
+constexpr int kMaxLanes = 4096;    // lanes of a chunk, at most
+constexpr int kCtaLanes = 512;     // a chunk up to this many is one CTA
+constexpr int kClusterCtas = 8;    // a larger one, one cluster of this many
+constexpr int kWarp = 32;
+constexpr int kMaxWarps = kCtaLanes / kWarp;  // warps of a CTA, at most
+constexpr int kScan = 16;          // dec slot words a scan loads at once
+constexpr int kEmitted = 1 << 30;  // types.py EMITTED_BIT
 constexpr int kVoteMask = kEmitted - 1;
+constexpr unsigned long long kNoKey = ~0ull;  // an empty table slot
 
 struct Planes {
   const uint8_t* active;
@@ -110,433 +162,507 @@ struct Half {
   int B;
 };
 
-struct SortSmem {
-  unsigned long long key[kMaxLanes];
-  unsigned short lane[kMaxLanes];
-  int n;
+// One slot of a CTA's run-rank table: a key, its masked lanes in the CTA
+// and in each of its warps.  key and total are read together, as 16 bytes.
+struct alignas(16) RankSlot {
+  unsigned long long key;
+  int total;
+  int pad;
+  unsigned char per_warp[kMaxWarps];
+};
+static_assert(sizeof(RankSlot) == 32, "a table slot is two 16-byte words");
+
+// ---- launch geometry ------------------------------------------------------
+
+struct Geometry {
+  int ctas;     // 1, or kClusterCtas: one cluster
+  int threads;  // of a CTA: one a lane, rounded up to a warp
 };
 
-__device__ __forceinline__ int lane_of(int k) {
-  return threadIdx.x + k * kThreads;
+Geometry geometry(int B) {
+  const int ctas = B <= kCtaLanes ? 1 : kClusterCtas;
+  const int per = (B + ctas - 1) / ctas;
+  return Geometry{ctas, (per + kWarp - 1) / kWarp * kWarp};
+}
+
+// slots of one run-rank table for CTAs of `threads`: a power of two, at
+// least twice the lanes a CTA enters
+__host__ __device__ __forceinline__ int table_cap(int threads) {
+  int cap = 2 * kWarp;
+  while (cap < 2 * threads) cap <<= 1;
+  return cap;
+}
+
+// a one-warp CTA ranks in its warp alone and needs no table
+__host__ __device__ __forceinline__ bool needs_tables(int ctas, int threads) {
+  return ctas > 1 || threads > kWarp;
+}
+
+// ---- barriers and small helpers ------------------------------------------
+
+// The barrier between two phases: every thread of the chunk has made its
+// memory operations of the phase before visible to every other.
+template <bool kCl>
+__device__ __forceinline__ void wave_barrier() {
+  if constexpr (kCl) {
+    cg::this_cluster().sync();  // barrier.cluster arrive (release) + wait
+                                // (acquire)
+  } else {
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ int lane_index() {
+  return blockIdx.x * blockDim.x + threadIdx.x;
 }
 
 __device__ __forceinline__ bool in_range(int g, int G) {
   return g >= 0 && g < G;
 }
 
-// A barrier after which every thread of the CTA reads, through L2, what
-// any thread stored before it.
-__device__ __forceinline__ void phase_barrier() {
-  __threadfence();
-  __syncthreads();
-}
-
 __device__ __forceinline__ int* vote_word(const Planes& s, int row, int w) {
   return reinterpret_cast<int*>(s.prop + (size_t)row * s.W + w) + 3;
 }
 
-// rank[k] = the number of earlier lanes with mask set and the same key,
-// for each masked lane k the thread owns (0 for the others).  Every thread
-// of the CTA calls it; it starts and ends with a barrier.
-__device__ void run_rank(SortSmem& sm, const bool (&mask)[kLPT],
-                         const unsigned long long (&key)[kLPT],
-                         int (&rank)[kLPT]) {
-  const int tid = threadIdx.x;
-  if (tid == 0) sm.n = 0;
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kLPT; ++k) {
-    rank[k] = 0;
-    if (mask[k]) {
-      int p = atomicAdd(&sm.n, 1);
-      sm.key[p] = key[k];
-      sm.lane[p] = (unsigned short)lane_of(k);
-    }
-  }
-  __syncthreads();
-  const int n = sm.n;
-  if (n < 2) {  // uniform: no two lanes to order
-    __syncthreads();
-    return;
-  }
-  int N = 2;
-  while (N < n) N <<= 1;
-  for (int p = n + tid; p < N; p += kThreads) {
-    sm.key[p] = ~0ull;  // no masked key is this large (g < 2^31)
-    sm.lane[p] = 0xffff;
-  }
-  __syncthreads();
-  // bitonic sort, ascending by (key, lane); all of a pair's moves are made
-  // by the thread that owns its lower index
-  for (int size = 2; size <= N; size <<= 1) {
-    for (int j = size >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < N; i += kThreads) {
-        int l = i ^ j;
-        if (l > i) {
-          unsigned long long ka = sm.key[i], kb = sm.key[l];
-          unsigned short la = sm.lane[i], lb = sm.lane[l];
-          bool a_after_b = ka > kb || (ka == kb && la > lb);
-          if (a_after_b == ((i & size) == 0)) {
-            sm.key[i] = kb;
-            sm.key[l] = ka;
-            sm.lane[i] = lb;
-            sm.lane[l] = la;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  int got_lane[kLPT], got_rank[kLPT];
-#pragma unroll
-  for (int j = 0; j < kLPT; ++j) {
-    int p = tid + j * kThreads;
-    got_lane[j] = -1;
-    if (p < n) {
-      unsigned long long kp = sm.key[p];
-      int lo = 0, hi = p;  // the first sorted position holding kp
-      while (lo < hi) {
-        int mid = (lo + hi) >> 1;
-        if (sm.key[mid] < kp) lo = mid + 1; else hi = mid;
-      }
-      got_lane[j] = sm.lane[p];
-      got_rank[j] = p - lo;
-    }
-  }
-  __syncthreads();
-  int* rank_of = reinterpret_cast<int*>(sm.key);  // lane -> rank
-#pragma unroll
-  for (int j = 0; j < kLPT; ++j)
-    if (got_lane[j] >= 0) rank_of[got_lane[j]] = got_rank[j];
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kLPT; ++k)
-    if (mask[k]) rank[k] = rank_of[lane_of(k)];
-  __syncthreads();
+__device__ __forceinline__ int hash_slot(unsigned long long key, int cap) {
+  return (int)((key * 0x9E3779B97F4A7C15ull) >> 40) & (cap - 1);
 }
 
-// ---- lane sources: where a step's per-lane inputs come from --------------
+// ---- the run rank ----------------------------------------------------------
 
-// accept lanes of a packed accept input [6, B]: g, slot, bal, rlo, rhi, valid
-struct AcceptIn {
-  const int* in;
-  int B;
-  __device__ int g(int i) const { return __ldg(in + i); }
-  __device__ int slot(int i) const { return __ldg(in + B + i); }
-  __device__ int bal(int i) const { return __ldg(in + 2 * B + i); }
-  __device__ int rlo(int i) const { return __ldg(in + 3 * B + i); }
-  __device__ int rhi(int i) const { return __ldg(in + 4 * B + i); }
-  __device__ bool valid(int i) const { return __ldg(in + 5 * B + i) != 0; }
-};
+// Every slot of `n` run-rank table slots empty.
+__device__ void clear_tables(RankSlot* t, int n) {
+  uint4* words = reinterpret_cast<uint4*>(t);
+  for (int k = threadIdx.x; k < 2 * n; k += blockDim.x)
+    words[k] = (k & 1) ? make_uint4(0, 0, 0, 0)
+                       : make_uint4(~0u, ~0u, 0, 0);  // kNoKey, total 0
+}
 
-// the coordinator's own accept: a propose input [5, B] (g, rlo, rhi,
-// self_midx, valid) and the rows the propose step wrote (granted, slot,
-// cbal), read back by the thread that wrote them
-struct SelfAccept {
-  const int* in;
-  const int* out;
-  int B;
-  __device__ int g(int i) const { return __ldg(in + i); }
-  __device__ int slot(int i) const { return out[3 * B + i]; }
-  __device__ int bal(int i) const { return out[4 * B + i]; }
-  __device__ int rlo(int i) const { return __ldg(in + B + i); }
-  __device__ int rhi(int i) const { return __ldg(in + 2 * B + i); }
-  __device__ bool valid(int i) const { return out[i] != 0; }
-};
-
-// reply lanes of a packed reply input [6, B]: g, slot, bal, sender,
-// acked, valid
-struct ReplyIn {
-  const int* in;
-  int B;
-  __device__ int g(int i) const { return __ldg(in + i); }
-  __device__ int slot(int i) const { return __ldg(in + B + i); }
-  __device__ int bal(int i) const { return __ldg(in + 2 * B + i); }
-  __device__ int sender(int i) const { return __ldg(in + 3 * B + i); }
-  __device__ bool acked(int i) const { return __ldg(in + 4 * B + i) != 0; }
-  __device__ bool valid(int i) const { return __ldg(in + 5 * B + i) != 0; }
-};
-
-// the coordinator's own vote on its granted lanes: ballot cbal where its
-// accept acked, else the promise it met (rows 3, 4, 5, 8 of the propose
-// half's output)
-struct SelfVote {
-  const int* in;
-  const int* out;
-  int B;
-  __device__ int g(int i) const { return __ldg(in + i); }
-  __device__ int slot(int i) const { return out[3 * B + i]; }
-  __device__ int bal(int i) const {
-    return acked(i) ? out[4 * B + i] : out[8 * B + i];
-  }
-  __device__ int sender(int i) const { return __ldg(in + 3 * B + i); }
-  __device__ bool acked(int i) const { return out[5 * B + i] != 0; }
-  __device__ bool valid(int i) const { return out[i] != 0; }
-};
-
-// commit lanes: g, slot, rlo, rhi and valid, each a [B] row
-struct CommitIn {
-  const int* g;
-  const int* slot;
-  const int* rlo;
-  const int* rhi;
-  const int* valid;
-};
-
-// ---- the steps -----------------------------------------------------------
-
-// accept: outputs acked, stale, out_window and cur_bal where the pointers
-// are given
-template <class Src>
-__device__ void accept_step(const Planes& s, const Src& src, int B,
-                            int* o_acked, int* o_stale, int* o_ow,
-                            int* o_cur) {
-  int row[kLPT], cur[kLPT];
-  bool live[kLPT];
+// The lanes with `key` in the cluster's CTAs before this one: a lookup in
+// each of their tables through distributed shared memory.
+__device__ int earlier_ctas(const RankSlot* tab, int cap,
+                            unsigned long long key) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int me = (int)cl.block_rank();
+  const int h = hash_slot(key, cap);
+  ulonglong2 first[kClusterCtas];
 #pragma unroll
-  for (int k = 0; k < kLPT; ++k) {
-    const int i = lane_of(k);
-    row[k] = 0;
-    cur[k] = 0;
-    live[k] = false;
-    if (i < B) {
-      int g = src.g(i);
-      bool v = src.valid(i) && in_range(g, s.G);
-      row[k] = v ? g : 0;
-      live[k] = v && __ldg(s.active + row[k]) != 0;
-      cur[k] = __ldcg(s.cursor + row[k]);
-      int seen = __ldcg(s.bal + row[k]);
-      gp::accept_raise(s.bal, row[k], live[k], src.bal(i), seen);
+  for (int c = 0; c < kClusterCtas; ++c)  // the first probes, all at once
+    first[c] = c < me ? *reinterpret_cast<const ulonglong2*>(
+                            cl.map_shared_rank(tab + h, c))
+                      : make_ulonglong2(kNoKey, 0);
+  int n = 0;
+#pragma unroll
+  for (int c = 0; c < kClusterCtas; ++c) {
+    ulonglong2 got = first[c];
+    int e = h;
+    while (got.x != key && got.x != kNoKey) {  // a collision: probe on
+      e = (e + 1) & (cap - 1);
+      got = *reinterpret_cast<const ulonglong2*>(
+          cl.map_shared_rank(tab + e, c));
     }
+    if (got.x == key) n += (int)(unsigned)got.y;  // total, the low word
   }
-  phase_barrier();  // every raise of the batch before any decision
-#pragma unroll
-  for (int k = 0; k < kLPT; ++k) {
-    const int i = lane_of(k);
-    if (i >= B) continue;
-    int cb = __ldcg(s.bal + row[k]);
-    int slot = src.slot(i), lane_bal = src.bal(i);
-    gp::AcceptDecision d =
-        gp::accept_decide(live[k], lane_bal, slot, cur[k], cb, s.W);
+  return n;
+}
+
+// The stable run rank: for a lane with `mask`, the number of earlier lanes
+// of the chunk with `mask` and the same `key` (0 for a lane without).  Every
+// thread calls it.  `tab` is this CTA's table, cleared, with a barrier
+// between the clear and this call; the call holds one wave barrier (none
+// in a one-warp CTA), after which every thread has read what it needs of
+// every CTA's table.  No masked key is kNoKey.
+template <bool kCl>
+__device__ int run_rank(RankSlot* tab, int cap, bool mask,
+                        unsigned long long key) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const unsigned peers =
+      __match_any_sync(~0u, key) & __ballot_sync(~0u, mask);
+  const int in_warp = __popc(peers & ((1u << lane) - 1));
+  if (!needs_tables(kCl ? kClusterCtas : 1, blockDim.x))
+    return mask ? in_warp : 0;
+  const int leader = mask ? __ffs(peers) - 1 : lane;
+  const bool lead = mask && leader == lane;
+  int e = 0;
+  if (lead) {
+    e = hash_slot(key, cap);
+    for (;;) {
+      const unsigned long long was = atomicCAS(&tab[e].key, kNoKey, key);
+      if (was == kNoKey || was == key) break;
+      e = (e + 1) & (cap - 1);
+    }
+    tab[e].per_warp[warp] = (unsigned char)__popc(peers);
+    atomicAdd(&tab[e].total, __popc(peers));
+  }
+  wave_barrier<kCl>();  // every CTA's table whole
+  int base = 0;
+  if (lead) {
+    if (tab[e].total != __popc(peers))  // the key has lanes in other warps
+      for (int w = 0; w < warp; ++w) base += tab[e].per_warp[w];
+    if constexpr (kCl) base += earlier_ctas(tab, cap, key);
+  }
+  base = __shfl_sync(~0u, base, leader);
+  return mask ? base + in_warp : 0;
+}
+
+// ---- the steps -------------------------------------------------------------
+
+// an accept lane: its row (0 unless valid), live (valid and active), its
+// slot, ballot and request id, and its row's exec_cursor and bal as read
+// before any raise of the batch
+struct AcceptLane {
+  int row, slot, bal, rlo, rhi, cur, seen;
+  bool live;
+};
+
+// a lane of a packed accept input [6, B]: g, slot, bal, rlo, rhi, valid
+__device__ AcceptLane accept_lane(const Planes& s, const int* in, int B,
+                                  int i) {
+  AcceptLane a;
+  const int g = __ldg(in + i);
+  const bool v = __ldg(in + 5 * B + i) != 0 && in_range(g, s.G);
+  a.row = v ? g : 0;
+  a.slot = __ldg(in + B + i);
+  a.bal = __ldg(in + 2 * B + i);
+  a.rlo = __ldg(in + 3 * B + i);
+  a.rhi = __ldg(in + 4 * B + i);
+  a.live = v && __ldg(s.active + a.row) != 0;
+  a.cur = __ldcg(s.cursor + a.row);
+  a.seen = __ldcg(s.bal + a.row);
+  return a;
+}
+
+// accept: the raise | barrier | the decision against bal[row] after the
+// whole batch (*cb), and the store
+template <bool kCl>
+__device__ gp::AcceptDecision accept_step(const Planes& s, bool on,
+                                          const AcceptLane& a, int* cb) {
+  if (on) gp::accept_raise(s.bal, a.row, a.live, a.bal, a.seen);
+  wave_barrier<kCl>();  // every raise of the batch before any decision
+  gp::AcceptDecision d{};
+  *cb = 0;
+  if (on) {
+    *cb = __ldcg(s.bal + a.row);
+    d = gp::accept_decide(a.live, a.bal, a.slot, a.cur, *cb, s.W);
     if (d.store)
-      gp::accept_store(s.acc, row[k], s.W, slot, lane_bal, src.rlo(i),
-                       src.rhi(i));
-    o_acked[i] = d.acked;
-    if (o_stale) o_stale[i] = d.stale;
-    if (o_ow) o_ow[i] = d.out_window;
-    o_cur[i] = cb;
+      gp::accept_store(s.acc, a.row, s.W, a.slot, a.bal, a.rlo, a.rhi);
   }
-  phase_barrier();
+  return d;
 }
 
-// commit: outputs applied, stale, out_window (where given), new_cursor
-__device__ void commit_step(const Planes& s, const CommitIn& in, int B,
-                            int* o_applied, int* o_stale, int* o_ow,
+// a commit lane: its row (0 unless valid), live (valid and active), slot,
+// request id, and its row's exec_cursor before the batch
+struct CommitLane {
+  int row, slot, rlo, rhi, cur;
+  bool live;
+};
+
+// a lane of a packed commit input [5, B]: g, slot, rlo, rhi, valid
+__device__ CommitLane commit_lane(const Planes& s, const int* in, int B,
+                                  int i) {
+  CommitLane c;
+  const int g = __ldg(in + i);
+  const bool v = __ldg(in + 4 * B + i) != 0 && in_range(g, s.G);
+  c.row = v ? g : 0;
+  c.slot = __ldg(in + B + i);
+  c.rlo = __ldg(in + 2 * B + i);
+  c.rhi = __ldg(in + 3 * B + i);
+  c.live = v && __ldg(s.active + c.row) != 0;
+  c.cur = __ldcg(s.cursor + c.row);
+  return c;
+}
+
+// adv = the leading k < W with dec[row, (cur + k) % W].slot == cur + k:
+// the row's slot words loaded kScan at a time, each group at once
+__device__ int scan_advance(const Planes& s, int row, int cur) {
+  const int* drow = s.dec + (size_t)row * s.W * 3;
+  for (int k0 = 0; k0 < s.W; k0 += kScan) {
+    int got[kScan];
+#pragma unroll
+    for (int j = 0; j < kScan; ++j) {
+      const int k = k0 + j;
+      got[j] = k < s.W
+                   ? __ldcg(drow + gp::floor_mod(gp::add_wrap(cur, k), s.W) * 3)
+                   : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kScan; ++j) {
+      const int k = k0 + j;
+      if (k >= s.W || got[j] != gp::add_wrap(cur, k)) return k;
+    }
+  }
+  return s.W;
+}
+
+// commit: the stores | barrier | the scan and advance | barrier | the new
+// cursor; outputs applied, stale, out_window (where given), new_cursor
+template <bool kCl>
+__device__ void commit_step(const Planes& s, bool on, const CommitLane& c,
+                            int i, int* o_applied, int* o_stale, int* o_ow,
                             int* o_cursor) {
-  int row[kLPT], cur[kLPT];
-  bool store[kLPT];
-#pragma unroll
-  for (int k = 0; k < kLPT; ++k) {
-    const int i = lane_of(k);
-    row[k] = 0;
-    cur[k] = 0;
-    store[k] = false;
-    if (i >= B) continue;
-    int g = in.g[i];
-    bool v = in.valid[i] != 0 && in_range(g, s.G);
-    row[k] = v ? g : 0;
-    bool act = __ldg(s.active + row[k]) != 0;
-    cur[k] = __ldcg(s.cursor + row[k]);
-    int slot = in.slot[i];
-    int hi = gp::add_wrap(cur[k], s.W);
-    store[k] = v && act && slot >= cur[k] && slot < hi;
-    o_applied[i] = store[k];
-    o_stale[i] = v && act && slot < cur[k];
-    if (o_ow) o_ow[i] = v && act && slot >= hi;
-    if (store[k]) {
-      int* d = s.dec + ((size_t)row[k] * s.W + gp::floor_mod(slot, s.W)) * 3;
-      d[0] = slot;
-      d[1] = in.rlo[i];
-      d[2] = in.rhi[i];
+  const int hi = gp::add_wrap(c.cur, s.W);
+  const bool store = on && c.live && c.slot >= c.cur && c.slot < hi;
+  if (on) {
+    o_applied[i] = store;
+    o_stale[i] = c.live && c.slot < c.cur;
+    if (o_ow) o_ow[i] = c.live && c.slot >= hi;
+    if (store) {
+      int* d = s.dec + ((size_t)c.row * s.W + gp::floor_mod(c.slot, s.W)) * 3;
+      d[0] = c.slot;
+      d[1] = c.rlo;
+      d[2] = c.rhi;
     }
   }
-  phase_barrier();  // every store of the batch before any scan
-#pragma unroll
-  for (int k = 0; k < kLPT; ++k) {
-    if (!store[k]) continue;
-    const int* drow = s.dec + (size_t)row[k] * s.W * 3;
-    int adv = 0;
-    for (; adv < s.W; ++adv) {
-      int want = gp::add_wrap(cur[k], adv);
-      if (__ldcg(drow + gp::floor_mod(want, s.W) * 3) != want) break;
-    }
-    atomicMax(s.cursor + row[k], gp::add_wrap(cur[k], adv));
-  }
-  phase_barrier();  // every advance before any read of the new cursor
-#pragma unroll
-  for (int k = 0; k < kLPT; ++k) {
-    const int i = lane_of(k);
-    if (i < B) o_cursor[i] = __ldcg(s.cursor + row[k]);
-  }
+  wave_barrier<kCl>();  // every store of the batch before any scan
+  if (store)
+    atomicMax(s.cursor + c.row,
+              gp::add_wrap(c.cur, scan_advance(s, c.row, c.cur)));
+  wave_barrier<kCl>();  // every advance before any read of the new cursor
+  if (on) o_cursor[i] = __ldcg(s.cursor + c.row);
 }
 
-// propose over a propose input [5, B]: writes rows 0-4 of `out` (granted,
-// rejected, throttled, slot, cbal)
-__device__ void propose_step(const Planes& s, SortSmem& sm, const int* in,
-                             int B, int* out) {
-  int row[kLPT], ns[kLPT], cur[kLPT];
-  bool can[kLPT];
-  unsigned long long key[kLPT];
-#pragma unroll
-  for (int k = 0; k < kLPT; ++k) {
-    const int i = lane_of(k);
-    row[k] = ns[k] = cur[k] = 0;
-    can[k] = false;
-    key[k] = 0;
-    if (i >= B) continue;
-    int g = __ldg(in + i);
-    bool v = __ldg(in + 4 * B + i) != 0 && in_range(g, s.G);
-    row[k] = v ? g : 0;
-    bool act = __ldg(s.active + row[k]) != 0;
-    bool coord = __ldcg(s.is_coord + row[k]) != 0 &&
-                 __ldcg(s.coord_active + row[k]) != 0;
-    can[k] = v && act && coord;
-    ns[k] = __ldcg(s.next_slot + row[k]);
-    cur[k] = __ldcg(s.cursor + row[k]);
-    key[k] = (unsigned)g;
-    out[B + i] = v && act && !coord;
-    out[4 * B + i] = __ldg(s.cbal + row[k]);
+// a vote lane: its row and window column (0 unless valid), slot, ballot,
+// sender and ack, and its row's flags, cbal and members
+struct VoteLane {
+  int row, w, slot, bal, sender, cb, members;
+  bool v, ic, ca, acked;
+};
+
+struct VoteOut {
+  bool newly, pre;
+  int4 col;  // the prop column before the step
+};
+
+// vote: the fresh votes | barrier | the re-gathered count, the run rank of
+// the quorum lanes of one (row, slot), EMITTED_BIT once a column, the
+// resignations
+template <bool kCl>
+__device__ VoteOut vote_step(const Planes& s, bool on, const VoteLane& l,
+                             RankSlot* tab, int cap) {
+  VoteOut o{false, false, make_int4(0, 0, 0, 0)};
+  bool match = false;
+  if (on) {
+    o.col = __ldcg(s.prop + (size_t)l.row * s.W + l.w);
+    match = l.v && l.ic && l.ca && l.bal == l.cb && l.acked && l.slot >= 0 &&
+            o.col.x == l.slot;
+    if (match && ((o.col.w >> l.sender) & 1) == 0)
+      atomicAdd(vote_word(s, l.row, l.w), 1 << l.sender);
+    o.pre = l.v && l.ic && !l.acked && l.bal > l.cb;
   }
-  int rank[kLPT];
-  run_rank(sm, can, key, rank);  // every next_slot read before any add
-#pragma unroll
-  for (int k = 0; k < kLPT; ++k) {
-    const int i = lane_of(k);
-    if (i >= B) continue;
-    int slot = gp::add_wrap(ns[k], rank[k]);
-    bool in_win = slot < gp::add_wrap(cur[k], s.W);
-    bool granted = can[k] && in_win;
+  wave_barrier<kCl>();  // every vote before any re-gather, every flag read
+                        // before any resign
+  bool quorum = false;
+  if (match) {
+    const int cnt = __popc(__ldcg(vote_word(s, l.row, l.w)) & kVoteMask);
+    quorum = cnt >= gp::floor_half(l.members) + 1;
+  }
+  const int rank = run_rank<kCl>(
+      tab, cap, quorum,
+      ((unsigned long long)(unsigned)l.row << 32) | (unsigned)l.slot);
+  o.newly = quorum && (o.col.w & kEmitted) == 0 && rank == 0;
+  if (o.newly) atomicAdd(vote_word(s, l.row, l.w), kEmitted);
+  if (o.pre) {
+    s.is_coord[l.row] = 0;
+    s.coord_active[l.row] = 0;
+  }
+  return o;
+}
+
+// ---- the halves of the coordinator wave ------------------------------------
+
+// a propose input [5, B] (g, rlo, rhi, self_midx, valid): propose, the own
+// accept, the own vote; out [9, B]: granted, rejected, throttled, slot,
+// cbal, self_acked, newly_decided, preempted, acc_cur_bal
+template <bool kCl>
+__device__ void request_half(const Planes& s, const Half& h, int i,
+                             RankSlot* t_prop, RankSlot* t_vote, int cap) {
+  const int B = h.B;
+  const int* in = h.in;
+  int* out = h.out;
+  const bool on = i < B;
+  int g = 0, rlo = 0, rhi = 0, smidx = 0, row = 0;
+  int ns = 0, cur = 0, cb = 0, seen = 0, members = 0;
+  bool v = false, act = false, ic = false, ca = false;
+  if (on) {
+    g = __ldg(in + i);
+    rlo = __ldg(in + B + i);
+    rhi = __ldg(in + 2 * B + i);
+    smidx = __ldg(in + 3 * B + i);
+    v = __ldg(in + 4 * B + i) != 0 && in_range(g, s.G);
+    row = v ? g : 0;
+    act = __ldg(s.active + row) != 0;
+    ic = __ldcg(s.is_coord + row) != 0;
+    ca = __ldcg(s.coord_active + row) != 0;
+    ns = __ldcg(s.next_slot + row);
+    cur = __ldcg(s.cursor + row);
+    cb = __ldg(s.cbal + row);
+    seen = __ldcg(s.bal + row);
+    members = __ldg(s.members + row);
+  }
+  // propose
+  const bool coord = ic && ca;
+  const bool can = v && act && coord;
+  __syncthreads();  // the tables cleared before any entry
+  const int rank = run_rank<kCl>(t_prop, cap, can, (unsigned)g);
+  // (run_rank's barrier, or in a one-warp CTA the one above: every
+  // next_slot read before any add)
+  const int slot = gp::add_wrap(ns, rank);
+  const bool in_win = slot < gp::add_wrap(cur, s.W);
+  const bool granted = can && in_win;
+  if (on) {
     out[i] = granted;
-    out[2 * B + i] = can[k] && !in_win;
+    out[B + i] = v && act && !coord;
+    out[2 * B + i] = can && !in_win;
     out[3 * B + i] = slot;
+    out[4 * B + i] = cb;
     if (granted) {
-      atomicAdd(s.next_slot + row[k], 1);
-      s.prop[(size_t)row[k] * s.W + gp::floor_mod(slot, s.W)] =
-          make_int4(slot, __ldg(in + B + i), __ldg(in + 2 * B + i), 0);
+      atomicAdd(s.next_slot + row, 1);
+      s.prop[(size_t)row * s.W + gp::floor_mod(slot, s.W)] =
+          make_int4(slot, rlo, rhi, 0);
     }
   }
-  phase_barrier();
+  // the own accept of the granted lanes at cbal (a granted lane is valid
+  // and active, so its row words above are its accept's)
+  const AcceptLane a{granted ? row : 0, slot, cb, rlo, rhi, cur, seen,
+                     granted};
+  int cb_after;
+  const gp::AcceptDecision d = accept_step<kCl>(s, on, a, &cb_after);
+  if (on) {
+    out[5 * B + i] = d.acked;
+    out[8 * B + i] = cb_after;
+  }
+  // the own vote (its barrier above is the accept's: every propose store
+  // before any column read); the flags are as propose read them, since no
+  // vote has run yet
+  const VoteLane l{a.row, granted ? gp::floor_mod(slot, s.W) : 0, slot,
+                   d.acked ? cb : cb_after, smidx, cb, members,
+                   granted, ic, ca, d.acked};
+  const VoteOut o = vote_step<kCl>(s, on, l, t_vote, cap);
+  if (on) {
+    out[6 * B + i] = o.newly;
+    out[7 * B + i] = o.pre;
+  }
 }
 
-// vote (accept_reply): writes newly_decided and preempted, and where given
-// dec_bal, req_lo, req_hi and dec_slot
-template <class Src>
-__device__ void vote_step(const Planes& s, SortSmem& sm, const Src& src,
-                          int B, int* o_newly, int* o_pre, int* o_decbal,
-                          int* o_rlo, int* o_rhi, int* o_slot) {
-  int row[kLPT], w[kLPT], prev[kLPT];
-  bool match[kLPT], pre[kLPT];
-#pragma unroll
-  for (int k = 0; k < kLPT; ++k) {
-    const int i = lane_of(k);
-    row[k] = w[k] = prev[k] = 0;
-    match[k] = pre[k] = false;
-    if (i >= B) continue;
-    int g = src.g(i), slot = src.slot(i);
-    bool v = src.valid(i) && in_range(g, s.G);
-    row[k] = v ? g : 0;
-    w[k] = v ? gp::floor_mod(slot, s.W) : 0;
-    bool ic = __ldcg(s.is_coord + row[k]) != 0;
-    bool ca = __ldcg(s.coord_active + row[k]) != 0;
-    int cb = __ldg(s.cbal + row[k]);
-    int bal = src.bal(i);
-    bool acked = src.acked(i);
-    int4 pc = __ldcg(s.prop + (size_t)row[k] * s.W + w[k]);  // pre-batch
-    match[k] = v && ic && ca && bal == cb && acked && slot >= 0 &&
-               pc.x == slot;
-    prev[k] = pc.w;
-    int sender = src.sender(i);
-    if (match[k] && ((prev[k] >> sender) & 1) == 0)
-      atomicAdd(vote_word(s, row[k], w[k]), 1 << sender);
-    pre[k] = v && ic && !acked && bal > cb;
-    if (o_decbal) {
-      o_decbal[i] = cb;
-      o_rlo[i] = pc.y;
-      o_rhi[i] = pc.z;
-      o_slot[i] = slot;
-    }
-  }
-  phase_barrier();  // every vote before any re-gather, every flag read
-                    // before any resign
-  bool quorum[kLPT];
-  unsigned long long key[kLPT];
-#pragma unroll
-  for (int k = 0; k < kLPT; ++k) {
-    quorum[k] = false;
-    key[k] = 0;
-    if (!match[k]) continue;
-    const int i = lane_of(k);
-    int cnt = __popc(__ldcg(vote_word(s, row[k], w[k])) & kVoteMask);
-    quorum[k] = cnt >= gp::floor_half(__ldg(s.members + row[k])) + 1;
-    key[k] = ((unsigned long long)(unsigned)row[k] << 32) |
-             (unsigned)src.slot(i);
-  }
-  int rank[kLPT];
-  run_rank(sm, quorum, key, rank);  // the first quorum lane of a column
-#pragma unroll
-  for (int k = 0; k < kLPT; ++k) {
-    const int i = lane_of(k);
-    if (i >= B) continue;
-    bool newly = quorum[k] && (prev[k] & kEmitted) == 0 && rank[k] == 0;
-    if (newly) atomicAdd(vote_word(s, row[k], w[k]), kEmitted);
-    if (pre[k]) {
-      s.is_coord[row[k]] = 0;
-      s.coord_active[row[k]] = 0;
-    }
-    o_newly[i] = newly;
-    o_pre[i] = pre[k];
-  }
-  phase_barrier();  // the next step sees the emitted bits and resigns
+// a lane of a reply input [6, B] (g, slot, bal, sender, acked, valid):
+// the vote lane without its flags, and the row words of the commit of a
+// lane the vote decides (its row is then this one)
+struct ReplyLane {
+  VoteLane l;
+  bool act;
+  int cur;
+};
+
+// the words a reply lane reads that the request half cannot change: its
+// inputs, cbal and members, and for the commit active and exec_cursor
+// (only the commit writes exec_cursor)
+__device__ ReplyLane reply_lane(const Planes& s, const int* in, int B, int i) {
+  ReplyLane r{};
+  VoteLane& l = r.l;
+  const int g = __ldg(in + i);
+  l.slot = __ldg(in + B + i);
+  l.bal = __ldg(in + 2 * B + i);
+  l.sender = __ldg(in + 3 * B + i);
+  l.acked = __ldg(in + 4 * B + i) != 0;
+  l.v = __ldg(in + 5 * B + i) != 0 && in_range(g, s.G);
+  l.row = l.v ? g : 0;
+  l.w = l.v ? gp::floor_mod(l.slot, s.W) : 0;
+  l.cb = __ldg(s.cbal + l.row);
+  l.members = __ldg(s.members + l.row);
+  r.act = __ldg(s.active + l.row) != 0;
+  r.cur = __ldcg(s.cursor + l.row);
+  return r;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// the replies' vote, then the commit of what they newly decided; out
+// [9, B]: newly_decided, preempted, dec_bal, req_lo, req_hi, dec_slot,
+// applied, stale, new_cursor.  The flags are read here, after the barrier
+// between the halves.
+template <bool kCl>
+__device__ void reply_half(const Planes& s, const Half& h, int i,
+                           ReplyLane r, RankSlot* t_vote, int cap) {
+  const int B = h.B;
+  int* out = h.out;
+  const bool on = i < B;
+  VoteLane& l = r.l;
+  if (on) {
+    l.ic = __ldcg(s.is_coord + l.row) != 0;
+    l.ca = __ldcg(s.coord_active + l.row) != 0;
+  }
+  const VoteOut o = vote_step<kCl>(s, on, l, t_vote, cap);
+  if (on) {
+    out[i] = o.newly;
+    out[B + i] = o.pre;
+    out[2 * B + i] = l.cb;
+    out[3 * B + i] = o.col.y;
+    out[4 * B + i] = o.col.z;
+    out[5 * B + i] = l.slot;
+  }
+  // the newly decided lanes commit {slot, req_lo, req_hi}
+  const CommitLane c{o.newly ? l.row : 0, l.slot, o.col.y, o.col.z, r.cur,
+                     o.newly && r.act};
+  commit_step<kCl>(s, on, c, i, out + 6 * B, out + 7 * B, nullptr,
+                   out + 8 * B);
+}
+
+// ---- the kernels -------------------------------------------------------------
+
+template <bool kCl>
+__global__ void __launch_bounds__(kCtaLanes, 1)
     acceptor_wave_kernel(Planes s, Half acc, Half com) {
+  const int i = lane_index();
+  // both halves' lane inputs and row words first: the accept touches
+  // neither dec nor exec_cursor, so the commit's pre-batch cursor is the
+  // cursor at launch
+  const bool a_on = i < acc.B, c_on = i < com.B;
+  AcceptLane a{};
+  CommitLane c{};
+  if (a_on) a = accept_lane(s, acc.in, acc.B, i);
+  if (c_on) c = commit_lane(s, com.in, com.B, i);
   if (acc.B > 0) {
-    const int B = acc.B;
-    accept_step(s, AcceptIn{acc.in, B}, B, acc.out, acc.out + B,
-                acc.out + 2 * B, acc.out + 3 * B);
+    int cb;
+    const gp::AcceptDecision d = accept_step<kCl>(s, a_on, a, &cb);
+    if (a_on) {
+      const int B = acc.B;
+      acc.out[i] = d.acked;
+      acc.out[B + i] = d.stale;
+      acc.out[2 * B + i] = d.out_window;
+      acc.out[3 * B + i] = cb;
+    }
   }
+  if (acc.B > 0 && com.B > 0) wave_barrier<kCl>();  // between the halves
   if (com.B > 0) {
     const int B = com.B;
-    const int* in = com.in;  // g, slot, rlo, rhi, valid
-    commit_step(s, CommitIn{in, in + B, in + 2 * B, in + 3 * B, in + 4 * B},
-                B, com.out, com.out + B, com.out + 2 * B, com.out + 3 * B);
+    commit_step<kCl>(s, c_on, c, i, com.out, com.out + B, com.out + 2 * B,
+                     com.out + 3 * B);
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+template <bool kCl>
+__global__ void __launch_bounds__(kCtaLanes, 1)
     coordinator_wave_kernel(Planes s, Half req, Half rep) {
-  __shared__ SortSmem sm;
-  if (req.B > 0) {
-    const int B = req.B;
-    int* out = req.out;
-    propose_step(s, sm, req.in, B, out);
-    accept_step(s, SelfAccept{req.in, out, B}, B, out + 5 * B, nullptr,
-                nullptr, out + 8 * B);
-    vote_step(s, sm, SelfVote{req.in, out, B}, B, out + 6 * B, out + 7 * B,
-              nullptr, nullptr, nullptr, nullptr);
-  }
+  extern __shared__ RankSlot tabs[];  // propose, own vote, replies' vote
+  const int cap = table_cap(blockDim.x);
+  const int own = req.B > 0 ? 2 : 0;
+  if (needs_tables(kCl ? kClusterCtas : 1, blockDim.x))
+    clear_tables(tabs, (own + (rep.B > 0 ? 1 : 0)) * cap);
+  const int i = lane_index();
+  ReplyLane r{};  // gathered with the request half's words
+  if (i < rep.B) r = reply_lane(s, rep.in, rep.B, i);
+  if (req.B > 0) request_half<kCl>(s, req, i, tabs, tabs + cap, cap);
+  if (req.B > 0 && rep.B > 0)
+    wave_barrier<kCl>();  // between the halves: the replies' vote sees the
+                          // own vote's resignations
   if (rep.B > 0) {
-    const int B = rep.B;
-    int* out = rep.out;
-    vote_step(s, sm, ReplyIn{rep.in, B}, B, out, out + B, out + 2 * B,
-              out + 3 * B, out + 4 * B, out + 5 * B);
-    // the newly decided lanes commit {slot, req_lo, req_hi}
-    commit_step(s, CommitIn{rep.in, rep.in + B, out + 3 * B, out + 4 * B,
-                            out},
-                B, out + 6 * B, out + 7 * B, nullptr, out + 8 * B);
+    reply_half<kCl>(s, rep, i, r, tabs + own * cap, cap);
+  } else if constexpr (kCl) {
+    wave_barrier<kCl>();  // no CTA leaves while another reads its table
   }
 }
+
+// the launch floor: an empty kernel at a wave's geometry and shared memory
+// (one argument, as the launch helper passes at least one)
+__global__ void wave_floor_kernel(int) {}
 
 Planes planes(const void* active, const void* members, void* bal, void* acc,
               void* dec, void* cursor, void* is_coord, void* coord_active,
@@ -558,13 +684,64 @@ Planes planes(const void* active, const void* members, void* bal, void* acc,
 
 bool bad_half(int B) { return B < 0 || B > kMaxLanes; }
 
+// shared memory of a launch over B lanes with `tables` run-rank tables
+size_t table_bytes(int B, int tables) {
+  const Geometry g = geometry(B);
+  if (!needs_tables(g.ctas, g.threads)) return 0;
+  return (size_t)tables * table_cap(g.threads) * sizeof(RankSlot);
+}
+
+// the most shared memory a launch takes: three tables at kCtaLanes threads
+constexpr size_t kMaxTableBytes =
+    3 * (2 * kCtaLanes) * sizeof(RankSlot);
+
+// Lift the 48 KB default of dynamic shared memory, once a process.
+cudaError_t allow_tables() {
+  static const cudaError_t e = [] {
+    const void* kernels[] = {
+        reinterpret_cast<const void*>(coordinator_wave_kernel<false>),
+        reinterpret_cast<const void*>(coordinator_wave_kernel<true>),
+        reinterpret_cast<const void*>(wave_floor_kernel)};
+    for (const void* k : kernels) {
+      const cudaError_t r = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)kMaxTableBytes);
+      if (r != cudaSuccess) return r;
+    }
+    return cudaSuccess;
+  }();
+  return e;
+}
+
+// Launch `kernel` over B lanes: one CTA, or one cluster of kClusterCtas.
+template <class... Args>
+cudaError_t launch(void (*kernel)(Args...), int B, size_t smem,
+                   cudaStream_t stream, Args... args) {
+  const Geometry g = geometry(B);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.ctas);
+  cfg.blockDim = dim3(g.threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = g.ctas > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 }  // namespace
 
-// The launch geometry: threads of the one CTA, and the most lanes a half
-// of a chunk may hold.
-extern "C" int gp_wave_limits(int* threads, int* max_lanes) {
-  *threads = kThreads;
-  *max_lanes = kMaxLanes;
+// The launch geometry of a B-lane chunk: CTAs (1, or one cluster) and
+// threads a CTA.
+extern "C" int gp_wave_geometry(int B, int* ctas, int* threads) {
+  if (B < 1 || B > kMaxLanes) return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry g = geometry(B);
+  *ctas = g.ctas;
+  *threads = g.threads;
   return static_cast<int>(cudaSuccess);
 }
 
@@ -577,14 +754,19 @@ extern "C" int gp_acceptor_wave(const void* acc_in, void* acc_out, int Ba,
                                 void* is_coord, void* coord_active,
                                 const void* cbal, void* next_slot, void* prop,
                                 int G, int W, void* stream) {
-  if (bad_half(Ba) || bad_half(Bc) || W < 1 || G < 1)
+  if (bad_half(Ba) || bad_half(Bc) || Ba + Bc == 0 || W < 1 || G < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Planes s = planes(active, members, bal, acc, dec, cursor, is_coord,
                     coord_active, cbal, next_slot, prop, G, W);
-  acceptor_wave_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, Half{static_cast<const int*>(acc_in), static_cast<int*>(acc_out), Ba},
-      Half{static_cast<const int*>(com_in), static_cast<int*>(com_out), Bc});
-  return static_cast<int>(cudaGetLastError());
+  const int B = Ba > Bc ? Ba : Bc;
+  Half a{static_cast<const int*>(acc_in), static_cast<int*>(acc_out), Ba};
+  Half c{static_cast<const int*>(com_in), static_cast<int*>(com_out), Bc};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = geometry(B).ctas > 1
+                      ? launch(acceptor_wave_kernel<true>, B, 0, st, s, a, c)
+                      : launch(acceptor_wave_kernel<false>, B, 0, st, s, a, c);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return static_cast<int>(e);
 }
 
 extern "C" int gp_coordinator_wave(const void* req_in, void* req_out, int Bq,
@@ -595,13 +777,34 @@ extern "C" int gp_coordinator_wave(const void* req_in, void* req_out, int Bq,
                                    void* coord_active, const void* cbal,
                                    void* next_slot, void* prop, int G, int W,
                                    void* stream) {
-  if (bad_half(Bq) || bad_half(Br) || W < 1 || G < 1)
+  if (bad_half(Bq) || bad_half(Br) || Bq + Br == 0 || W < 1 || G < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = allow_tables();
+  if (e != cudaSuccess) return static_cast<int>(e);
   Planes s = planes(active, members, bal, acc, dec, cursor, is_coord,
                     coord_active, cbal, next_slot, prop, G, W);
-  coordinator_wave_kernel<<<1, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      s, Half{static_cast<const int*>(req_in), static_cast<int*>(req_out), Bq},
-      Half{static_cast<const int*>(rep_in), static_cast<int*>(rep_out), Br});
-  return static_cast<int>(cudaGetLastError());
+  const int B = Bq > Br ? Bq : Br;
+  const size_t smem = table_bytes(B, (Bq > 0 ? 2 : 0) + (Br > 0 ? 1 : 0));
+  Half q{static_cast<const int*>(req_in), static_cast<int*>(req_out), Bq};
+  Half r{static_cast<const int*>(rep_in), static_cast<int*>(rep_out), Br};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  e = geometry(B).ctas > 1
+          ? launch(coordinator_wave_kernel<true>, B, smem, st, s, q, r)
+          : launch(coordinator_wave_kernel<false>, B, smem, st, s, q, r);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return static_cast<int>(e);
+}
+
+// The launch floor of a B-lane chunk: an empty kernel at its geometry, with
+// the shared memory of `tables` run-rank tables (0 for the acceptor wave,
+// 3 for a coordinator wave with both halves).
+extern "C" int gp_wave_floor(int B, int tables, void* stream) {
+  if (B < 1 || B > kMaxLanes || tables < 0 || tables > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = allow_tables();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = launch(wave_floor_kernel, B, table_bytes(B, tables),
+             static_cast<cudaStream_t>(stream), 0);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return static_cast<int>(e);
 }

@@ -16,12 +16,27 @@ bodies, a few hundred torch calls and a host sync a wave):
 
 The source is ``csrc/wave.cu``; its header comment holds the semantics
 (each step a scatter phase and a gather phase with a barrier between),
-the bound and the design.  In short: ONE launch a call, one CTA of 1024
-threads over at most 4096 lanes a half, ``__syncthreads`` between the
-phases, the run ranks from a bitonic sort in shared memory.  The bound
-is bytes — about a megabyte at 4096 lanes, a third of a microsecond at
-3.35 TB/s — and what limits a runtime chunk is the launch and the chain
-of dependent memory round trips across the barriers.
+the bound and the design.  In short: ONE launch a call, one lane a
+thread.  A chunk of at most ``CTA_LANES`` lanes is one CTA of as many
+threads as lanes, rounded up to a warp (buckets 8, 64, 512: 32, 64, 512
+threads, ``__syncthreads`` between the phases); a larger one is one
+thread-block cluster of ``CLUSTER_CTAS`` CTAs (bucket 4096: 8 x 512, the
+hardware cluster barrier between the phases) — :func:`geometry`, which
+the library's ``gp_wave_geometry`` must match.  The contiguity scan
+loads a row's W slot words at once; the run rank counts keys in a
+shared-memory hash (``__match_any_sync`` inside a warp, the earlier
+CTAs' tables through distributed shared memory) and sorts nothing.  The
+bound is bytes — under a megabyte at 4096 lanes, a third of a
+microsecond at 3.35 TB/s — and what limits a chunk is the launch and the
+chain of dependent round trips across the barriers: 5 round trips and 4
+barriers for the acceptor wave, 9 and 10 for the coordinator wave with
+both halves.
+:meth:`WaveKernel.floor` launches an empty kernel at a chunk's geometry,
+the launch alone, beside which ``chip_smoke.py`` prints each time.
+``-Xptxas -v`` (sm_90a, CUDA 12.8): the acceptor wave 53 registers in one
+CTA and in a cluster, the coordinator wave 48 and 74, no spills, no
+static shared memory; the coordinator wave's run-rank tables are
+dynamic shared memory, 96 KB a CTA of 512 threads with both halves.
 
 A call takes each half as a packed ``[k+1, B]`` int32 tensor (the
 layouts of the JAX module's packed entry points, valid mask last) or
@@ -32,8 +47,8 @@ wrappers launch on the current stream and never synchronize.  They run
 only on a CUDA device and raise on anything else: the plain versions
 are the torch bodies of :mod:`gigapaxos_tpu_torch.ops.kernels`, which
 that module's entry points run for a state on the CPU.  Each launch
-adds one to the wrapper's ``launches`` (exact when several threads
-launch).
+adds one to the wrapper's ``launches`` and to its ``by_bucket`` count of
+the chunk's lane count (exact when several threads launch).
 """
 
 from __future__ import annotations
@@ -46,9 +61,22 @@ import torch
 
 from gigapaxos_tpu_torch.ops.types import ColumnarState
 
-# launch geometry of csrc/wave.cu (kThreads, kMaxLanes); the library
-# reports its own at load and the wrapper checks they agree
-THREADS, MAX_LANES = 1024, 4096
+# launch geometry of csrc/wave.cu (kCtaLanes, kClusterCtas, kMaxLanes)
+CTA_LANES, CLUSTER_CTAS, MAX_LANES = 512, 8, 4096
+WARP = 32
+
+
+def geometry(B: int):
+    """``(ctas, threads)`` of the launch over a ``B``-lane chunk: one CTA
+    of B threads rounded up to a warp, or above ``CTA_LANES`` lanes one
+    cluster of ``CLUSTER_CTAS`` CTAs sharing the lanes."""
+    if not 0 < B <= MAX_LANES:
+        raise ValueError(f"wave kernels: {B} lanes; a chunk holds 1 to "
+                         f"{MAX_LANES}")
+    ctas = 1 if B <= CTA_LANES else CLUSTER_CTAS
+    per = -(-B // ctas)
+    return ctas, -(-per // WARP) * WARP
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,25 +85,34 @@ _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the two wave entry points of a built ``wave.cu`` (their C
+    signature is the same in every version of the source)."""
+    for fn in (lib.gp_acceptor_wave, lib.gp_coordinator_wave):
+        fn.argtypes = [_P, _P, _I, _P, _P, _I] + [_P] * 11 + [_I, _I, _P]
+        fn.restype = _I
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """Build (first use) and bind the waves' library."""
     global _lib
     with _lib_lock:
         if _lib is None:
             from gigapaxos_tpu_torch.ops import _build
-            lib = _build.load("wave")
-            for fn in (lib.gp_acceptor_wave, lib.gp_coordinator_wave):
-                fn.argtypes = [_P, _P, _I, _P, _P, _I] + [_P] * 11 + \
-                    [_I, _I, _P]
-                fn.restype = _I
-            lib.gp_wave_limits.argtypes = [ctypes.POINTER(_I)] * 2
-            lib.gp_wave_limits.restype = _I
-            t, n = _I(), _I()
-            rc = lib.gp_wave_limits(ctypes.byref(t), ctypes.byref(n))
-            if rc or (t.value, n.value) != (THREADS, MAX_LANES):
-                raise RuntimeError(
-                    f"wave kernels: library geometry {t.value}x{n.value} "
-                    f"(rc {rc}) != {THREADS}x{MAX_LANES}")
+            lib = bind(_build.load("wave"))
+            lib.gp_wave_geometry.argtypes = [_I] + [ctypes.POINTER(_I)] * 2
+            lib.gp_wave_geometry.restype = _I
+            lib.gp_wave_floor.argtypes = [_I, _I, _P]
+            lib.gp_wave_floor.restype = _I
+            for B in (1, 8, 32, 33, 64, CTA_LANES, CTA_LANES + 1, 4095,
+                      MAX_LANES):
+                c, t = _I(), _I()
+                rc = lib.gp_wave_geometry(B, ctypes.byref(c), ctypes.byref(t))
+                if rc or (c.value, t.value) != geometry(B):
+                    raise RuntimeError(
+                        f"wave kernels: library geometry at {B} lanes "
+                        f"{c.value}x{t.value} (rc {rc}) != {geometry(B)}")
             _lib = lib
         return _lib
 
@@ -106,15 +143,20 @@ def _check_state(state: ColumnarState, name: str) -> torch.device:
 class WaveKernel:
     """Wrapper of one CUDA wave kernel: checks, launches, counts."""
 
-    def __init__(self, name: str, symbol: str, in_rows, out_rows):
+    def __init__(self, name: str, symbol: str, in_rows, out_rows,
+                 tables: int, lib: Optional[ctypes.CDLL] = None):
         self.name = name
         self.kernel_name = f"{name}_kernel"  # as the profiler names it
         self._symbol = symbol
         self.in_rows = in_rows    # packed input rows of each half
         self.out_rows = out_rows  # output rows of each half
-        # CUDA kernel launches (one per call); the node runtime launches
-        # from several threads, so the count is bumped under a lock
+        self.tables = tables      # run-rank tables of both halves
+        self._lib = lib           # another build of wave.cu (``bind``)
+        # CUDA kernel launches (one per call), and by the chunk's lane
+        # count; the node runtime launches from several threads, so the
+        # counts are bumped under a lock
         self.launches = 0
+        self.by_bucket = {}
         self._count_lock = threading.Lock()
 
     def __call__(self, state: ColumnarState, first, second) -> torch.Tensor:
@@ -139,9 +181,7 @@ class WaveKernel:
                 raise ValueError(f"{self.name} kernel: halves of "
                                  f"{B} and {h.shape[1]} lanes")
             B = h.shape[1]
-        if not 0 < B <= MAX_LANES:
-            raise ValueError(f"{self.name} kernel: {B} lanes; a chunk "
-                             f"holds 1 to {MAX_LANES}")
+        geometry(B)  # raises outside 1 .. MAX_LANES
         m = sum(r for h, r in zip(halves, self.out_rows) if h is not None)
         out = torch.empty((m, B), dtype=torch.int32, device=dev)
         args = []
@@ -152,8 +192,7 @@ class WaveKernel:
             else:
                 args += [h.data_ptr(), out[at:at + r].data_ptr(), B]
                 at += r
-        lib = load()
-        fn = getattr(lib, self._symbol)
+        fn = getattr(self._lib or load(), self._symbol)
         st = state
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -168,10 +207,23 @@ class WaveKernel:
                                    f"error {rc}")
             with self._count_lock:
                 self.launches += 1
+                self.by_bucket[B] = self.by_bucket.get(B, 0) + 1
         return out
 
+    def floor(self, B: int) -> None:
+        """Launch an empty kernel at this wave's geometry over ``B`` lanes,
+        with its shared memory for both halves, on the current stream (the
+        launch floor of a chunk; not counted in ``launches``)."""
+        geometry(B)
+        lib = load()
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gp_wave_floor(B, self.tables, stream)
+        if rc:
+            raise RuntimeError(f"{self.name} floor launch failed: cuda "
+                               f"error {rc}")
 
-acceptor = WaveKernel("acceptor_wave", "gp_acceptor_wave", (6, 5), (4, 4))
+
+acceptor = WaveKernel("acceptor_wave", "gp_acceptor_wave", (6, 5), (4, 4), 0)
 coordinator = WaveKernel("coordinator_wave", "gp_coordinator_wave", (5, 6),
-                         (9, 9))
+                         (9, 9), 3)
 KERNELS = (acceptor, coordinator)

@@ -13,7 +13,12 @@ feeds the kernels on the card), each case the kernels must order is
 built on purpose: run ranks and throttling at the window edge, two
 quorum lanes in one column, single-member groups deciding on the self
 vote, a self-nack whose preemption the second half's vote must see, a
-commit that closes a gap, and each half of a wave empty."""
+commit that closes a gap, and each half of a wave empty.  The chunks
+``chip_smoke.py`` phase 2 adds at the seams of the kernels' launch
+geometry (one CTA up to 512 lanes, one cluster of 8 CTAs above) run
+here too, at small G, through both halves of each wave."""
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,10 +29,15 @@ import chip_smoke
 from gigapaxos_tpu.ops import kernels as jk
 from gigapaxos_tpu.ops.types import ColumnarState as JaxState
 from gigapaxos_tpu_torch.ops import kernels as tk
+from gigapaxos_tpu_torch.ops import wave_cuda
 from gigapaxos_tpu_torch.ops.types import (EMITTED_BIT, NO_SLOT,
                                            state_from_numpy, state_to_numpy)
 
 G, W = 256, 16
+# the seam chunks of 4096 lanes need as many rows (one lane a row); the
+# others share G, and with it the JAX jits, with the random test
+SEAMS = [(what, n, B, how, 4096 if B == 4096 else G)
+         for what, n, B, how in chip_smoke.WAVE_SEAMS[1:]]
 
 
 def packed(half, cols, B):
@@ -249,3 +259,35 @@ def test_wave_bound_counts_live_lanes_only(kind):
     assert big - small == io512 - io64
     assert small > io64
     assert bound(0, 64) == (io64, io64)
+
+
+@pytest.mark.parametrize("kind", ["acceptor", "coordinator"])
+@pytest.mark.parametrize("what,n,B,how,g_rows", SEAMS,
+                         ids=[re.sub(r"\W+", "-", s[0]).strip("-")
+                              for s in SEAMS])
+def test_chunks_at_the_geometry_seams(kind, what, n, B, how, g_rows):
+    """Phase 2's seam chunks (``chip_smoke.WAVE_SEAMS``): 4096 lanes on
+    one row, on 8 rows, on rows of their own, 512 live lanes in the last
+    CTA's range of 4096, and bucket 512 all live, both halves."""
+    rng = np.random.default_rng(9)
+    host = chip_smoke.wave_host_state(g_rows, W, rng)
+    name = f"{kind}_wave"
+    kinds, _, jax_fns = chip_smoke.WAVE_KERNELS[name]
+    rows = chip_smoke.seam_rows(host, rng, how)
+    halves, live = chip_smoke.seam_halves(kinds, host, rng, n, B, how, rows,
+                                          "cpu")
+    first, second = (h.numpy() for h in halves)
+    if how.get("last"):  # the live lanes sit at the end of the chunk
+        assert not first[-1, :B - n].any() and first[-1, B - n:].all()
+    Pair(host).run(name, jax_fns[0], first, second)
+
+
+def test_launch_geometry_follows_the_bucket():
+    """One CTA of the bucket's lanes rounded up to a warp up to 512
+    lanes, one cluster of 8 CTAs sharing them above, nothing beyond a
+    chunk of 4096."""
+    assert [wave_cuda.geometry(B) for B in (1, 8, 33, 64, 512, 513, 4096)] \
+        == [(1, 32), (1, 32), (1, 64), (1, 64), (1, 512), (8, 96), (8, 512)]
+    for B in (0, wave_cuda.MAX_LANES + 1):
+        with pytest.raises(ValueError):
+            wave_cuda.geometry(B)
