@@ -91,14 +91,36 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    ``/metrics`` scraped live (four lanes, exact slab bytes equal to
    phase 5's, a valid exposition) and their cluster merge (every node
    up);
-9. the kernels' launch counters, reset just before each of phases 3 to
-   8 and read just after, must show that those paths went through their
+9. config 4 through the control plane (``bench.py:747-750`` →
+   ``gigapaxos_tpu/testing/main.py:369-447``): 3 actives and 3
+   reconfigurators (``ReconfigurableNode``s in this process on loopback),
+   each on a ``ColumnarBackend(2**16, 16)`` on the card, ``NoopApp``,
+   failure detection and the guard at the defaults; 10,000 names
+   created through ``ReconfigurableAppClient.create_names`` in chunks of
+   2048, 4 in flight, then deleted through ``delete_names`` — every
+   create and delete acknowledged within the client's 120 s, 256 sampled
+   names with a row on each of their 3 actives after the creates (and a
+   request to 64 of them decided and answered) and on none after the
+   deletes (the epoch FSM's stop decisions and batched drops); it prints
+   ops/s, each half apart, the ``w.*`` stage totals, elections, sheds and
+   re-driven accepts;
+9b. the port's entry points as processes: ``python -m
+   gigapaxos_tpu_torch.server`` for 3 actives and 1 reconfigurator (the
+   chat app on the columnar backend on the card, each with a stats
+   listener), a room created, posted to, read and deleted through
+   ``python -m gigapaxos_tpu_torch.client_cli``, and each server's
+   ``/engine/kernels`` scraped: one server at least reports accept
+   kernel launches (``cuda:accept``); every server is stopped on the way
+   out, and one that dies fails the phase with its stderr;
+10. the kernels' launch counters, reset just before each of phases 3 to
+   9 and read just after, must show that those paths went through their
    kernels: exact counts of the accept kernel and of no wave kernel in
    the storm (it keeps its torch bodies), of the accept kernel (plain
    accept waves) and the acceptor wave kernel (commits and fused acceptor
    waves) in the SPI phase, each wave kernel at least once in phases 5
-   and 8, and one of them at least after the kill and in each replay;
-   phases 5 and 8 also print each wave kernel's launches by bucket.
+   and 8, one of them at least after the kill and in each replay, and
+   the accept kernel and the acceptor wave kernel in phase 9; phases 5,
+   8 and 9 also print each wave kernel's launches by bucket.
 
 It prints one JSON line listing every kernel (route, source, the TPU
 kernel it replaces, launches on the main path, error against the plain
@@ -116,6 +138,7 @@ lane against four.  ``--defaults`` runs phases 5 and 8 with failure
 detection and the congestion guard at the package defaults (phase 8
 pins them otherwise; the deactivator stays off) and reports what they
 did (answers, elections, sheds, agreement) rather than failing on it.
+``--churn-only`` runs phases 9 and 9b alone.
 ``--wave-ab DIR [--out FILE]`` times the wave kernels of an older
 checkout unpacked in DIR (``git archive <rev> gigapaxos_tpu_torch``)
 against this tree's in one process, in turns (parent, this, this,
@@ -197,6 +220,20 @@ REPLAY_REFS = (("tests/data/reference.gpbb", {}),
                ("tests/data/failover_ref.gpbb",
                 {"PING_INTERVAL_S": 0.15, "FAILURE_TIMEOUT_S": 1.0}),
                ("tests/data/lanes_ref.gpbb", {}))
+# phase 9: config 4 (bench.py:747-750 -> testing/main.py:369-447, its
+# defaults :713-724): 3 actives and 3 reconfigurators (ids 100-102) in
+# this process on loopback, each a ColumnarBackend(2^16, 16); NoopApp,
+# SYNC_WAL off, pings every 0.05 s, failure detection and the guard at
+# the defaults; 10,000 names created, then deleted, through the control
+# plane in chunks of 2048, 4 in flight, within the client's 120 s
+CHURN_ACTIVES, CHURN_RCS, CHURN_CAPACITY = 3, 3, 1 << 16
+CHURN_NAMES, CHURN_CHUNK, CHURN_INFLIGHT = 10_000, 2048, 4
+CHURN_TIMEOUT_S = 120.0
+# names checked for rows on their actives, and the ones sent a request
+CHURN_SAMPLE, CHURN_PROBE, CHURN_SEED = 256, 64, 9
+# phase 9b: the server processes' time to listen (each reaches the card
+# and loads the built libraries) and the client's timeout
+CLI_BOOT_S, CLI_TIMEOUT_S = 120.0, 30.0
 PARITY_BS = (1, 8, 64, 512, 4096, 4099, 1 << 18)
 # the runtime's waves: ColumnarBackend pads n live lanes to the least
 # bucket of this ladder that holds them, on phase 5's 2^17-row slab and
@@ -2144,6 +2181,381 @@ def phase_lanes(device="cuda", n_groups=RT_GROUPS, capacity=RT_CAPACITY,
     return out
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+
+def _stage_delta(before: dict, after: dict) -> dict:
+    """``w.*`` profiler totals over one window: (wall s, calls, items)
+    each, for the tags that moved."""
+    out = {}
+    for tag, t in after.items():
+        if not tag.startswith("w."):
+            continue
+        b = before.get(tag, (0.0, 0, 0))
+        d = (t[0] - b[0], t[1] - b[1], t[2] - b[2])
+        if d[1] > 0:
+            out[tag] = d
+    return out
+
+
+def _stage_lines(tag, stages):
+    for k in sorted(stages):
+        wall_s, calls, items = stages[k]
+        info(f"{tag} profiler {k}: {wall_s:.4f} s over {calls} calls, "
+             f"{items} items")
+
+
+def _rows_on(actives, names):
+    """How many of ``names`` each active hosts (a row on its slab, or a
+    row the deactivator paused), by active id."""
+    from gigapaxos_tpu_torch.paxos.packets import group_key
+    return {a.id: sum(a.node.table.by_name(nm) is not None
+                      or group_key(nm) in a.node._paused for nm in names)
+            for a in actives}
+
+
+def phase_churn(device="cuda", n_names=CHURN_NAMES, capacity=CHURN_CAPACITY,
+                chunk=CHURN_CHUNK, inflight=CHURN_INFLIGHT,
+                sample=CHURN_SAMPLE, probe=CHURN_PROBE):
+    """Config 4 through the port's control plane: 3 actives and 3
+    reconfigurators (``ReconfigurableNode``s on loopback), each on a
+    ``ColumnarBackend(capacity, 16)`` on ``device``; ``n_names`` names
+    created through ``ReconfigurableAppClient.create_names`` in chunks of
+    ``chunk``, ``inflight`` chunks at a time, then deleted the same way.
+    Checks every create and delete acknowledged, ``sample`` names with a
+    row on each of their actives after the creates (and a request to
+    ``probe`` of them decided and answered) and on none after the
+    deletes, and, on the card, the accept kernel and the acceptor wave
+    kernel launched."""
+    import asyncio
+    import shutil
+    import tempfile
+    from gigapaxos_tpu_torch.paxos.interfaces import NoopApp
+    from gigapaxos_tpu_torch.paxos.paxosconfig import PC
+    from gigapaxos_tpu_torch.reconfiguration.appclient import \
+        ReconfigurableAppClient
+    from gigapaxos_tpu_torch.reconfiguration.node import (NodeConfig,
+                                                          ReconfigurableNode)
+    from gigapaxos_tpu_torch.testing.harness import free_ports
+    from gigapaxos_tpu_torch.utils.config import Config
+    from gigapaxos_tpu_torch.utils.profiler import DelayProfiler
+    Config.set(PC.COLUMNAR_DEVICE, device)
+    Config.set(PC.SYNC_WAL, False)
+    Config.set(PC.PING_INTERVAL_S, 0.05)  # testing/main.py's churn cadence
+    detection = _detection()
+    ports = free_ports(CHURN_ACTIVES + CHURN_RCS)
+    cfg = NodeConfig(
+        actives={i: ("127.0.0.1", ports[i]) for i in range(CHURN_ACTIVES)},
+        reconfigurators={100 + i: ("127.0.0.1", ports[CHURN_ACTIVES + i])
+                         for i in range(CHURN_RCS)},
+        actives_per_name=3)
+    logdir = tempfile.mkdtemp(prefix="gp_chip_churn_")
+    nodes = []
+    ok = False
+    try:
+        for i in list(cfg.actives) + list(cfg.reconfigurators):
+            nodes.append(ReconfigurableNode(i, cfg, NoopApp, logdir,
+                                            capacity=capacity, window=16))
+        engines = [n.active.node if n.active else n.reconfigurator.node
+                   for n in nodes]
+        for e in engines:
+            if e.backend.device.type != device:
+                raise AssertionError(f"churn: node {e.id} runs on "
+                                     f"{e.backend.device}, not {device}")
+        for n in nodes:
+            n.start()
+        actives = [n.active for n in nodes if n.active]
+        names = [f"rchurn{i}" for i in range(n_names)]
+        pick = np.random.default_rng(CHURN_SEED).choice(
+            n_names, size=min(sample, n_names), replace=False)
+        sampled = [names[i] for i in sorted(pick)]
+        out = {"names": n_names, "device": device, "detection": detection,
+               "capacity": capacity, "chunk": chunk, "inflight": inflight,
+               "sample": len(sampled), "probe": min(probe, len(sampled))}
+
+        async def wave(cli, op):
+            done = 0
+            chunks = [names[at:at + chunk]
+                      for at in range(0, len(names), chunk)]
+            for at in range(0, len(chunks), inflight):
+                res = await asyncio.gather(
+                    *[op(c) for c in chunks[at:at + inflight]])
+                done += sum(res)
+            return done
+
+        async def body():
+            cli = ReconfigurableAppClient((1 << 16) + 7, cfg,
+                                          timeout=CHURN_TIMEOUT_S)
+            try:
+                t0 = time.perf_counter()
+                out["created"] = await wave(cli, cli.create_names)
+                out["create_s"] = time.perf_counter() - t0
+                info(f"churn: {out['created']} of {n_names} creates "
+                     f"acknowledged in {out['create_s']:.3f} s")
+                out["stages_create"] = _stage_delta(
+                    before, DelayProfiler.totals())
+                _stage_lines("churn create", out["stages_create"])
+                # (b) every sampled name on each of its three actives (the
+                # third may ack after the majority), then one request to
+                # each of the probe names decided and answered
+                _wait(lambda: all(v == len(sampled) for v in
+                                  _rows_on(actives, sampled).values()),
+                      CHURN_TIMEOUT_S, "the sampled names on every active",
+                      lambda: f"rows {_rows_on(actives, sampled)} of "
+                              f"{len(sampled)}")
+                got = await asyncio.gather(*[
+                    cli.send_request(nm, f"probe {nm}".encode())
+                    for nm in sampled[:probe]])
+                out["answered"] = sum(
+                    g == f"probe {nm}".encode()
+                    for g, nm in zip(got, sampled[:probe]))
+                mid = DelayProfiler.totals()
+                t1 = time.perf_counter()
+                out["deleted"] = await wave(cli, cli.delete_names)
+                out["delete_s"] = time.perf_counter() - t1
+                info(f"churn: {out['deleted']} of {n_names} deletes "
+                     f"acknowledged in {out['delete_s']:.3f} s")
+                out["stages_delete"] = _stage_delta(
+                    mid, DelayProfiler.totals())
+                _stage_lines("churn delete", out["stages_delete"])
+            finally:
+                await cli.close()
+
+        def drops():
+            """Frames the nodes' transports dropped, by cause."""
+            out = {}
+            for e in engines:
+                for k, v in (("congestion", e.transport.drop_congestion),
+                             ("peer_gone", e.transport.drop_peer_gone),
+                             ("write_error", e.transport.drop_write_error)):
+                    out[k] = out.get(k, 0) + v
+            return out
+
+        reset_launches()
+        before = DelayProfiler.totals()
+        asyncio.run(body())
+        out["drops"] = drops()
+        # (c) no sampled name keeps a row on any active once dropped
+        _wait(lambda: not any(_rows_on(actives, sampled).values()),
+              CHURN_TIMEOUT_S, "the sampled names to leave every active",
+              lambda: f"rows {_rows_on(actives, sampled)}, transport "
+                      f"drops {drops()}")
+        out["launches"] = launches()
+        out["buckets"] = bucket_launches()
+        out["stages"] = _stage_delta(before, DelayProfiler.totals())
+        out["installs"] = sum(e.n_installs for e in engines)
+        out["shed"] = sum(e.n_shed for e in engines)
+        out["redriven"] = sum(e.n_redriven for e in engines)
+        out["memory"] = [e.backend.memory_info()["total_bytes"]
+                         for e in engines]
+        if out["created"] != n_names or out["deleted"] != n_names:
+            raise AssertionError(
+                f"churn: {out['created']} of {n_names} creates and "
+                f"{out['deleted']} of {n_names} deletes acknowledged")
+        if out["answered"] != min(probe, len(sampled)):
+            raise AssertionError(f"churn: {out['answered']} of "
+                                 f"{min(probe, len(sampled))} requests "
+                                 "answered with their payload")
+        if device == "cuda" and (out["launches"]["accept"] < 1 or
+                                 out["launches"]["acceptor_wave"] < 1):
+            raise AssertionError(f"churn: kernel launches "
+                                 f"{out['launches']}: the accept kernel "
+                                 "and the acceptor wave kernel must each "
+                                 "launch")
+        if "jax" in sys.modules:
+            raise AssertionError("churn: jax was imported")
+        ok = True
+    finally:
+        for n in nodes:
+            n.stop()
+        # a node thread still inside a torch call at interpreter exit
+        # aborts the process: every runtime thread must have ended (on
+        # the way out of a failure, the failure is what is reported)
+        try:
+            _wait(lambda: not _runtime_threads(), CHURN_TIMEOUT_S,
+                  "the churn nodes' threads to end after stop",
+                  lambda: f"alive {_runtime_threads()}")
+        except AssertionError:
+            if ok:
+                raise
+        Config.clear()
+        shutil.rmtree(logdir, ignore_errors=True)
+    return out
+
+
+def _churn_lines(ch, line):
+    ops = 2 * ch["names"]
+    wall = ch["create_s"] + ch["delete_s"]
+    d = ch["detection"]
+    info(f"churn: {CHURN_ACTIVES} actives + {CHURN_RCS} reconfigurators, "
+         f"each a ColumnarBackend({ch['capacity']}, 16) on "
+         f"{ch['device']} ({sum(ch['memory'])} B in "
+         f"{len(ch['memory'])} slabs); {ops} operations in {wall:.3f} s: "
+         f"{ops / wall:.1f} ops/s; creates {ch['created']} of "
+         f"{ch['names']} in {ch['create_s']:.3f} s "
+         f"({ch['names'] / ch['create_s']:.1f}/s), deletes "
+         f"{ch['deleted']} of {ch['names']} in {ch['delete_s']:.3f} s "
+         f"({ch['names'] / ch['delete_s']:.1f}/s); chunks of "
+         f"{ch['chunk']}, {ch['inflight']} in flight; failure timeout "
+         f"{d['failure_timeout_s']} s, backlog limit {d['backlog_limit']} "
+         f"({line})")
+    info(f"churn: {ch['sample']} sampled names on each of their actives "
+         f"after the creates and on none after the deletes; "
+         f"{ch['answered']} of {ch['probe']} requests answered; "
+         f"coordinator installs (elections won) {ch['installs']}, accepts "
+         f"re-driven {ch['redriven']}, requests shed {ch['shed']}, frames "
+         f"dropped {ch['drops']}; kernel "
+         f"launches {ch['launches']}")
+    info(f"churn: wave kernel launches by bucket (lanes: launches) "
+         f"{json.dumps(ch['buckets'])}")
+
+
+# -- phase 9b ----------------------------------------------------------------
+
+
+def _listening(port: int) -> bool:
+    import socket
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=0.2).close()
+        return True
+    except OSError:
+        return False
+
+
+def phase_cli(device="cuda"):
+    """The port's entry points as processes: ``python -m
+    gigapaxos_tpu_torch.server`` for 3 actives and 1 reconfigurator (the
+    chat app, the columnar backend on ``device``, each with a stats
+    listener), one chat room created, posted to, read and deleted
+    through ``python -m gigapaxos_tpu_torch.client_cli``, and every
+    server's ``/engine/kernels`` scraped: on the card one server at least
+    launched the accept kernel.  Every server is stopped on the way out;
+    one that dies fails the phase with its stderr."""
+    import os
+    import shutil
+    import tempfile
+    from gigapaxos_tpu_torch.testing.harness import free_ports
+    repo = str(Path(__file__).resolve().parent)
+    ids = (0, 1, 2, 100)
+    ports = free_ports(2 * len(ids))
+    node_ports, stats_ports = ports[:len(ids)], ports[len(ids):]
+    tmp = Path(tempfile.mkdtemp(prefix="gp_chip_cli_"))
+    conf = tmp / "gp.properties"
+    conf.write_text(
+        "".join(f"active.{i}=127.0.0.1:{node_ports[i]}\n" for i in range(3))
+        + f"reconfigurator.100=127.0.0.1:{node_ports[3]}\n"
+        "APPLICATION=gigapaxos_tpu_torch.examples.chatapp:ChatApp\n"
+        "CAPACITY=1024\nWINDOW=8\nBACKEND=columnar\nRC_GROUP_SIZE=1\n")
+    env = dict(os.environ, PYTHONPATH=repo)
+    if device != "cuda":  # a rehearsal off the card
+        env["GP_PC_COLUMNAR_DEVICE"] = device
+    procs, errs = [], []
+    out = {"device": device}
+
+    def died():
+        for i, p in zip(ids, procs):
+            if p.poll() is not None:
+                raise AssertionError(
+                    f"cli: server {i} exited {p.returncode}: "
+                    + (tmp / f"err{i}.log").read_text()[-4000:])
+
+    def cli(*args):
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "gigapaxos_tpu_torch.client_cli",
+             "--config", str(conf), "--timeout", str(CLI_TIMEOUT_S),
+             *args], env=env, capture_output=True, text=True,
+            timeout=4 * CLI_TIMEOUT_S)
+        out.setdefault("cli_s", []).append(time.perf_counter() - t)
+        if r.returncode != 0:
+            died()
+            raise AssertionError(f"cli: client_cli {' '.join(args)} exited "
+                                 f"{r.returncode}: {r.stderr[-4000:]}")
+        return r.stdout.strip()
+
+    try:
+        t0 = time.perf_counter()
+        for i, sp in zip(ids, stats_ports):
+            errs.append(open(tmp / f"err{i}.log", "wb"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "gigapaxos_tpu_torch.server",
+                 "--config", str(conf), "--id", str(i),
+                 "--logdir", str(tmp / "logs"), "--stats-port", str(sp)],
+                env=env, stdout=subprocess.DEVNULL, stderr=errs[-1],
+                cwd=repo))
+        deadline = time.monotonic() + CLI_BOOT_S
+        for port in node_ports + stats_ports:
+            while not _listening(port):
+                died()
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"cli: no server listened on "
+                                         f"{port} within {CLI_BOOT_S} s")
+                time.sleep(0.1)
+        out["boot_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        checks = [
+            (("create", "room1"), lambda s: s == "created"),
+            (("actives", "room1"), lambda s: len(s.split()) == 3),
+            (("send", "room1",
+              '{"op":"post","who":"alice","msg":"hello card"}'),
+             lambda s: '"ok": true' in s and '"seq": 1' in s),
+            (("send", "room1", '{"op":"read","n":5}'),
+             lambda s: "hello card" in s),
+            (("delete", "room1"), lambda s: s == "deleted"),
+            (("actives", "room1"), None),
+        ]
+        for args, ok in checks[:-1]:
+            got = cli(*args)
+            if not ok(got):
+                raise AssertionError(f"cli: {' '.join(args)} printed "
+                                     f"{got!r}")
+        # the deleted room no longer resolves (client_cli exits 1)
+        r = subprocess.run(
+            [sys.executable, "-m", "gigapaxos_tpu_torch.client_cli",
+             "--config", str(conf), "--timeout", str(CLI_TIMEOUT_S),
+             *checks[-1][0]], env=env, capture_output=True, text=True,
+            timeout=4 * CLI_TIMEOUT_S)
+        if r.returncode != 1 or "no such service" not in r.stderr:
+            raise AssertionError(f"cli: actives of the deleted room exited "
+                                 f"{r.returncode}: {r.stdout!r} "
+                                 f"{r.stderr[-2000:]!r}")
+        out["round_trip_s"] = time.perf_counter() - t1
+        died()
+        out["kernels"] = {}
+        for i, sp in zip(ids, stats_ports):
+            ks = json.loads(_scrape(sp, "/engine/kernels"))
+            out["kernels"][i] = ks["launches"]
+        top = max(k["cuda:accept"] for k in out["kernels"].values())
+        if device == "cuda" and top < 1:
+            raise AssertionError(f"cli: no server launched the accept "
+                                 f"kernel: {out['kernels']}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for f in errs:
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _cli_lines(cl, line):
+    info(f"cli: 3 actives + 1 reconfigurator as `python -m "
+         f"gigapaxos_tpu_torch.server` processes on {cl['device']}, "
+         f"listening {cl['boot_s']:.3f} s after launch; create, actives, "
+         f"post, read, delete and a failed lookup through `python -m "
+         f"gigapaxos_tpu_torch.client_cli` in {cl['round_trip_s']:.3f} s "
+         f"(each call {', '.join(f'{s:.2f}' for s in cl['cli_s'])} s); "
+         f"/engine/kernels launches by server {json.dumps(cl['kernels'])} "
+         f"({line})")
+
+
 def _failover_lines(fo, line):
     for when in ("pre", "post"):
         r = fo[when]
@@ -2287,6 +2699,10 @@ def main(argv=None) -> int:
                     "card (both bit-exact first), and exit")
     ap.add_argument("--out", help="with --wave-ab: write its rows here as "
                     "JSON")
+    ap.add_argument("--churn-only", action="store_true",
+                    help="run only phases 9 and 9b (config 4 through the "
+                    "control plane, then the server and client processes), "
+                    "print their lines and exit")
     ap.add_argument("--defaults", action="store_true",
                     help="run only phases 5 and 8 with failure detection "
                     "and the congestion guard at the package defaults "
@@ -2328,6 +2744,12 @@ def main(argv=None) -> int:
             ln = phase_lanes(slab_bytes=rt["memory"][0]["total_bytes"])
             _lanes_lines(ln, rt, line)
             info("lanes-only: phases 5 and 8")
+            return 0
+        if args.churn_only:
+            _build.build_all()
+            _churn_lines(phase_churn(), line)
+            _cli_lines(phase_cli(), line)
+            info("churn-only: phases 9 and 9b")
             return 0
         if args.defaults:
             _build.build_all()
@@ -2400,6 +2822,9 @@ def main(argv=None) -> int:
         _replay_lines(reps, line)
         ln = phase_lanes(slab_bytes=rt["memory"][0]["total_bytes"])
         _lanes_lines(ln, rt, line)
+        ch = phase_churn()
+        _churn_lines(ch, line)
+        _cli_lines(phase_cli(), line)
     except Exception as e:  # every phase's failure ends the run non-zero
         import traceback
         traceback.print_exc()
@@ -2408,7 +2833,7 @@ def main(argv=None) -> int:
     paths = {"storm": [storm["launches"]], "spi": [spi["launches"]],
              "runtime": [rt["launches"]], "failover": [fo["launches"]],
              "replay": [r["launches"] for r in reps],
-             "lanes": [ln["launches"]]}
+             "lanes": [ln["launches"]], "churn": [ch["launches"]]}
 
     def launched(name):
         by_path = {p: [c[name] for c in cs] for p, cs in paths.items()}

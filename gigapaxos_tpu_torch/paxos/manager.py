@@ -1921,10 +1921,22 @@ class PaxosNode:
         liveness, suspect detection, dict-generation GC — belongs to
         lane 0.  Exception-guarded: a failover-path bug must not kill
         the worker."""
+        # a tick's sends (catch-up sync requests, accept re-drives, the
+        # tick hooks' control packets) leave as ONE loop hop, as a
+        # worker batch's do: one hop a packet (thousands a tick behind
+        # a burst of lagging rows) kept the loop thread from reading
+        # the replies that would end the lag (ROADMAP F2)
+        own = self._out_buf is None
+        if own:
+            self._out_buf = []
         try:
             self._tick_inner(shard)
         except Exception:
             log.exception("tick failed")
+        finally:
+            if own:
+                out, self._out_buf = self._out_buf, None
+                self._emit_bundle(None, out)
 
     def _own_rows(self, rows: np.ndarray, shard: int) -> np.ndarray:
         """Mask an array of row indices down to this lane's shard."""
@@ -2649,15 +2661,21 @@ class PaxosNode:
     def engine_kernels(self) -> dict:
         """``GET /engine/kernels``: the ledger's rows, one per built
         library (builds / compile seconds / loads), joined with the hot
-        waves' costs (bytes accessed from the shapes; flops null).
+        waves' costs (bytes accessed from the shapes; flops null), and
+        the hand-written kernels' launches in this process, by kernel
+        (``cuda:accept``, ``cuda:acceptor_wave``, ``cuda:coordinator_wave``;
+        0 off the card, where the wrappers run their plain versions).
         Read under the engine locks, as the reference's cost sweep."""
+        from gigapaxos_tpu_torch.ops import accept_cuda, wave_cuda
         with contextlib.ExitStack() as stack:
             for lk in self._locks_for(range(self.shards)):
                 stack.enter_context(lk)
             costs = self.backend.kernel_costs()
         return {"node": self.id,
                 "kernels": EngineLedger.kernels(),
-                "costs": costs}
+                "costs": costs,
+                "launches": {f"cuda:{k.name}": k.launches for k in
+                             (accept_cuda.accept,) + wave_cuda.KERNELS}}
 
     def _groups_health(self) -> dict:
         """Node-wide consensus-health rollup from the host mirrors
@@ -2922,13 +2940,26 @@ class PaxosNode:
                             sb.req_id[:keep], sb.flags[:keep],
                             sb.pay_off[:keep + 1], sb.pay))
                 soas = tuple(kept_soas)
-                keep = len(reqs) - int(len(reqs) * frac)
-                for o in reqs[keep:]:
-                    self._route(o.sender, pkt.Response(
-                        self.id, o.gkey, o.req_id, 1, b""))
+                # requests this node put on its own queue (the control
+                # plane's record ops and epoch stops) are not fresh
+                # client work: each carries a decision already taken,
+                # nothing answers a shed one but a later re-drive, so
+                # they flow as peer traffic does; the tail of the
+                # clients' requests is shed, as before
+                n_cli = sum(o.sender != self.id for o in reqs)
+                keep = n_cli - int(n_cli * frac)
+                kept, seen = [], 0
+                for o in reqs:
+                    if o.sender != self.id:
+                        seen += 1
+                        if seen > keep:
+                            self._route(o.sender, pkt.Response(
+                                self.id, o.gkey, o.req_id, 1, b""))
+                            continue
+                    kept.append(o)
                 with self._stat_lock:
-                    self.n_shed += len(reqs) - keep
-                reqs = reqs[:keep]
+                    self.n_shed += n_cli - keep
+                reqs = kept
                 if not (reqs or soas or props):
                     return
         rows_parts: List[np.ndarray] = []

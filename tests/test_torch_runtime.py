@@ -28,8 +28,10 @@ from gigapaxos_tpu.testing.harness import PaxosEmulation as JaxEmulation
 from gigapaxos_tpu.testing.harness import free_ports
 from gigapaxos_tpu.utils.config import Config as JConfig
 from gigapaxos_tpu_torch.paxos import interfaces as ti
+from gigapaxos_tpu_torch.paxos import packets as pkt
 from gigapaxos_tpu_torch.paxos.client import PaxosClient
 from gigapaxos_tpu_torch.paxos.manager import PaxosNode
+from gigapaxos_tpu_torch.paxos.packets import group_key
 from gigapaxos_tpu_torch.paxos.paxosconfig import PC
 from gigapaxos_tpu_torch.testing.harness import PaxosEmulation
 from gigapaxos_tpu_torch.utils.config import Config
@@ -360,3 +362,69 @@ def test_runtime_wave_driver_on_cpu():
         wave()
     assert int(state_to_numpy(b.state)["exec_cursor"].sum()) == \
         3 * bd.RT_LANES
+
+
+# -- the control plane's load on the runtime (ROADMAP §3) ---------------
+
+
+def test_local_requests_pass_the_backlog_guard(tmp_path):
+    """Requests a node puts on its own queue (the control plane's record
+    ops and epoch stops) are never shed by the congestion guard: a burst
+    of them behind a tiny backlog limit is decided and executed on every
+    replica, with nothing shed."""
+    Config.set(PC.COLUMNAR_DEVICE, "cpu")
+    Config.set(PC.INTAKE_BACKLOG_LIMIT, 8)
+    Config.set(PC.BATCH_SIZE, 16)  # the queue stays deep between batches
+    emu = PaxosEmulation(str(tmp_path), n_nodes=3, n_groups=0,
+                         app_cls=ti.CounterApp, capacity=CAP, window=W,
+                         sync_wal=False)
+    try:
+        nodes = [emu.nodes[i] for i in range(3)]
+        names = [f"loc{i}" for i in range(300)]
+        for n in nodes:
+            n.create_groups([(g, (0, 1, 2)) for g in names])
+        for i, g in enumerate(names):
+            coord = nodes[group_key(g) % 3]
+            coord._inq.put(pkt.Request(coord.id, group_key(g),
+                                       (1 << 62) | i, 0, b"x"))
+        deadline = time.time() + tscale(20)
+        while time.time() < deadline and not all(
+                sum(n.app.count.values()) == len(names) for n in nodes):
+            time.sleep(0.05)
+        assert [sum(n.app.count.values()) for n in nodes] == [300] * 3
+        assert sum(n.n_shed for n in nodes) == 0
+    finally:
+        emu.stop()
+
+
+def test_tick_sends_leave_in_one_hop(tmp_path):
+    """A tick's sends (here the catch-up sync requests of rows that acked
+    an accept and saw no decision) reach the event loop as one batch, not
+    one loop hop a packet."""
+    Config.set(PC.COLUMNAR_DEVICE, "cpu")
+    node = PaxosNode(0, {0: ("127.0.0.1", 1), 1: ("127.0.0.1", 2),
+                         2: ("127.0.0.1", 3)}, ti.CounterApp(),
+                     str(tmp_path / "n0"), capacity=CAP, window=W)
+    try:
+        names = [f"lag{i}" for i in range(40)]
+        node.create_groups([(g, (1, 2, 0)) for g in names])
+        rows = np.asarray([node.table.by_name(g).row for g in names])
+        node._acc_hi[rows] = 0
+        node._acc_ts[rows] = 0.0  # acked long ago, nothing decided
+
+        class Loop:
+            def call_soon_threadsafe(self, fn, *args):
+                hops.append((fn.__name__, args))
+
+        hops = []
+        node._loop = Loop()
+        node.transport._loop = node._loop
+        node._tick()
+        many = [a[0] for f, a in hops if f == "send_many"]
+        assert [f for f, _ in hops] == ["send_many"], hops
+        sync = [it for it in many[0]
+                if pkt.decode(it[1]).__class__ is pkt.SyncRequest]
+        assert len(sync) == len(names)
+    finally:
+        node._loop = None
+        node.logger.close()
