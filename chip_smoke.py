@@ -112,15 +112,33 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    ``/engine/kernels`` scraped: one server at least reports accept
    kernel launches (``cuda:accept``); every server is stopped on the way
    out, and one that dies fails the phase with its stderr;
-10. the kernels' launch counters, reset just before each of phases 3 to
-   9 and read just after, must show that those paths went through their
-   kernels: exact counts of the accept kernel and of no wave kernel in
-   the storm (it keeps its torch bodies), of the accept kernel (plain
-   accept waves) and the acceptor wave kernel (commits and fused acceptor
-   waves) in the SPI phase, each wave kernel at least once in phases 5
-   and 8, one of them at least after the kill and in each replay, and
-   the accept kernel and the acceptor wave kernel in phase 9; phases 5,
-   8 and 9 also print each wave kernel's launches by bucket.
+10. the bench CLI (``python -m gigapaxos_tpu_torch.testing.main``, run
+   in this process through ``run(argv)``, each mode from the package
+   defaults) with the reference bench's own arguments: ``scale
+   --requests 1000000`` (one node holds 1,000,000 groups and answers the
+   last one), config 5b (``failover --single-coordinator --groups 100000
+   --requests 1000``: 5 nodes, node 0 leads every group and is killed),
+   config 2's knee sweep (``throughput --backend columnar --groups 100000
+   --capacity 131072 --requests 4000 --concurrency 448 --pipeline
+   --sweep``) and the same with ``--multiproc`` (three server processes
+   on the card) — every request answered with status 0, the takeover
+   complete, every group made, the tail status 0, kernel launches in each
+   row's engine rollup, every node thread ended;
+11. the chaos drill (``python -m gigapaxos_tpu_torch.chaos --seed 1``, in
+   this process, the default six scenarios on the columnar engine on the
+   card) — every row holds all five invariants with the fault schedule
+   the reference recorded for seed 1 (``CHAOS_r02.json``).
+
+The kernels' launch counters, reset just before each of phases 3 to 11
+(each mode of phase 10) and read just after, must show that those paths
+went through their kernels: exact counts of the accept kernel and of no
+wave kernel in the storm (it keeps its torch bodies), of the accept
+kernel (plain accept waves) and the acceptor wave kernel (commits and
+fused acceptor waves) in the SPI phase, each wave kernel at least once
+in phases 5, 8 and 11, one of them at least after the kill and in each
+replay, the accept kernel and the acceptor wave kernel in phase 9, and a
+launch in every mode of phase 10; phases 5, 8 and 9 also print each wave
+kernel's launches by bucket.
 
 It prints one JSON line listing every kernel (route, source, the TPU
 kernel it replaces, launches on the main path, error against the plain
@@ -138,7 +156,13 @@ lane against four.  ``--defaults`` runs phases 5 and 8 with failure
 detection and the congestion guard at the package defaults (phase 8
 pins them otherwise; the deactivator stays off) and reports what they
 did (answers, elections, sheds, agreement) rather than failing on it.
-``--churn-only`` runs phases 9 and 9b alone.
+``--churn-only`` runs phases 9 and 9b alone.  ``--main-only`` runs phase
+10 alone, with ``scale --requests 1000000 --restart`` (recovery at 1M)
+in place of its scale run and configs 5 and 6 besides (``bench.py:752``,
+``:776-780``), which the whole run leaves out for its time;
+``--chaos-only`` runs phase 11 alone, after the kernels are built and
+one fused wave of each kind has run; ``--out FILE`` writes their rows
+whole.
 ``--wave-ab DIR [--out FILE]`` times the wave kernels of an older
 checkout unpacked in DIR (``git archive <rev> gigapaxos_tpu_torch``)
 against this tree's in one process, in turns (parent, this, this,
@@ -234,6 +258,36 @@ CHURN_SAMPLE, CHURN_PROBE, CHURN_SEED = 256, 64, 9
 # phase 9b: the server processes' time to listen (each reaches the card
 # and loads the built libraries) and the client's timeout
 CLI_BOOT_S, CLI_TIMEOUT_S = 120.0, 30.0
+# phase 10: the bench CLI (gigapaxos_tpu_torch/testing/main.py) with the
+# reference bench's own arguments at full width, in this process but for
+# the replicas as processes: the "giga" capability, 1,000,000 groups live
+# in one node (BASELINE.json config 3 in the runtime); config 5b, 100,000
+# groups all led by node 0 of 5, node 0 killed (bench.py:755-758);
+# config 2's knee over the depth ladder under p99 <= 500 ms
+# (bench.py:725-729; the ladder stops at --concurrency, 448); config 2
+# with each replica a `python -m gigapaxos_tpu_torch.server` process
+MAIN_SCALE = ("scale", "--requests", "1000000")
+MAIN_KNEE = ("throughput", "--backend", "columnar", "--groups", "100000",
+             "--capacity", "131072", "--requests", "4000", "--concurrency",
+             "448", "--pipeline")
+MAIN_MODES = (
+    ("scale", MAIN_SCALE),
+    ("5b", ("failover", "--single-coordinator", "--groups", "100000",
+            "--requests", "1000")),
+    ("knee", MAIN_KNEE + ("--sweep",)),
+    ("multiproc", MAIN_KNEE + ("--multiproc",)))
+# --main-only also runs what the whole run's time limit leaves out:
+# recovery at 1M groups (scale --restart, in place of the plain scale),
+# config 5 (bench.py:752) and config 6 on the columnar engine
+# (bench.py:776-780, without --trials)
+MAIN_ONLY_MODES = (("scale", MAIN_SCALE + ("--restart",)),) + \
+    MAIN_MODES[1:] + (
+        ("5", ("failover", "--requests", "5000")),
+        ("6", ("throughput", "--groups", "1", "--requests", "6000",
+               "--concurrency", "128", "--sweep", "--pipeline")))
+# phase 11: the chaos drill's fault schedules for seed 1, as the
+# reference recorded them
+CHAOS_REFERENCE = "CHAOS_r02.json"
 PARITY_BS = (1, 8, 64, 512, 4096, 4099, 1 << 18)
 # the runtime's waves: ColumnarBackend pads n live lanes to the least
 # bucket of this ladder that holds them, on phase 5's 2^17-row slab and
@@ -2671,6 +2725,235 @@ def _lanes_lines(ln, rt, line, tag="lanes"):
          "up")
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+
+def _bench_mode(tag, argv, device):
+    """One run of ``gigapaxos_tpu_torch.testing.main`` in this process,
+    from the package defaults, on ``device``: its row, this process's
+    kernel launches over the run, its wall seconds.  The node threads
+    must have ended when it returns."""
+    import shutil
+    import tempfile
+    from gigapaxos_tpu_torch.paxos.paxosconfig import PC
+    from gigapaxos_tpu_torch.testing import main as bench
+    from gigapaxos_tpu_torch.utils.config import Config
+    Config.clear()
+    if device != "cuda":  # a rehearsal off the card
+        Config.set(PC.COLUMNAR_DEVICE, device)
+    logdir = tempfile.mkdtemp(prefix=f"gp_chip_main_{tag}_")
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        row = bench.run(argv + ["--logdir", logdir])
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    _wait(lambda: not _runtime_threads(), 30.0,
+          f"{tag}: every node thread to end", _runtime_threads)
+    Config.clear()
+    return row, counts, wall
+
+
+def _loads_ok(tag, loads):
+    """Each named load answered every request with status 0."""
+    for what, r in loads.items():
+        if r["ok"] != r["requests"] or r["errors"]:
+            raise AssertionError(
+                f"main {tag}: {what} answered {r['ok']} of {r['requests']}"
+                f" with {r['errors']} errors")
+
+
+def check_main_row(tag, argv, row, device):
+    """The row shows no failure (every request answered with status 0,
+    the takeover complete, every group made, the tail group's request
+    answered with status 0) and, on the card, kernel launches in its
+    engine rollup."""
+    i = row["info"]
+    if "takeover_complete" in i:
+        if not i["takeover_complete"]:
+            raise AssertionError(
+                f"main {tag}: takeover incomplete, {i['installed']} of "
+                f"{i['takeover_target']} installed")
+        _loads_ok(tag, {"pre": i["pre"], "post": i["post_through_failover"]})
+    elif "post" in i:
+        _loads_ok(tag, {"pre": i["pre"], "post": i["post"]})
+    elif "tail_request_status" in i:
+        n = int(argv[argv.index("--requests") + 1])
+        tails = [i["tail_request_status"]] + (
+            [i["recovery"]["tail_request_status"]] if "recovery" in i
+            else [])
+        if i["groups"] != n or any(tails):
+            raise AssertionError(f"main {tag}: {i['groups']} of {n} groups "
+                                 f"made, tail request status {tails}")
+    else:
+        _loads_ok(tag, {"measured": i})
+        bad = [r for r in i.get("depth_sweep", []) if r["errors"]]
+        if bad:
+            raise AssertionError(f"main {tag}: errors in the sweep {bad}")
+    if device == "cuda" and not sum(i["engine"]["launches"].values()):
+        raise AssertionError(f"main {tag}: no kernel launch in the engine "
+                             f"rollup {i['engine']['launches']}")
+
+
+def phase_main(device="cuda", modes=MAIN_MODES):
+    """Phase 10: the bench CLI's modes on the card, each held to
+    :func:`check_main_row`; returns ``(tag, row, launches, wall_s)`` a
+    mode.  Replicas as processes count their launches in their own
+    processes: the row's ``engine`` carries them."""
+    out = []
+    for tag, argv in modes:
+        row, counts, wall = _bench_mode(tag, list(argv), device)
+        if "--multiproc" in argv:
+            counts = {k[len("cuda:"):]: v for k, v in
+                      row["info"]["engine"]["launches"].items()}
+        try:
+            check_main_row(tag, argv, row, device)
+        except AssertionError:
+            info(f"main row {tag} (failed): {_row_brief(row)}")
+            raise
+        out.append((tag, row, counts, wall))
+    return out
+
+
+def _row_brief(row) -> str:
+    """The row as JSON without its profiler snapshot and stage totals."""
+    return json.dumps({k: v for k, v in row.items() if k != "info"} | {
+        "info": {k: v for k, v in row["info"].items()
+                 if k not in ("profiler", "stage_totals")}})
+
+
+def _main_lines(runs, line):
+    for tag, row, counts, wall in runs:
+        i = row["info"]
+        head = (f"main {tag}: {row['metric']}: {row['value']} {row['unit']};"
+                f" {wall:.3f} s of wall; kernel launches {counts}")
+        if "takeover_s" in i:
+            info(f"{head}; groups created in {i['create_s']} s, takeover "
+                 f"{i['takeover_s']} s, {i['installed']} installed of "
+                 f"{i['takeover_target']}, {i['spurious_pre_kill_installs']}"
+                 f" spurious pre-kill installs; pre {i['pre']['ok']}/"
+                 f"{i['pre']['requests']} at {i['pre']['throughput_rps']} "
+                 f"req/s, through the takeover "
+                 f"{i['post_through_failover']['ok']}/"
+                 f"{i['post_through_failover']['requests']} p99 "
+                 f"{i['post_through_failover']['lat_p99_ms']} ms ({line})")
+            for k in sorted(i["stage_totals"]):
+                if k.startswith(("fo.", "w.prepare")):
+                    info(f"main {tag} stage {k}: "
+                         f"{json.dumps(i['stage_totals'][k])}")
+        elif "tail_request_status" in i:
+            info(f"{head}; {i['groups']} groups in {i['wall_s']} s, bytes "
+                 f"a group {i['bytes_per_group']} (host "
+                 f"{i['host_bytes_per_group']}, device "
+                 f"{i['device_bytes_per_group']}; host RSS +"
+                 f"{i['rss_delta_mb']} MB, device +{i['device_delta_mb']} "
+                 f"MB), tail request status {i['tail_request_status']}, "
+                 f"recovery {json.dumps(i.get('recovery'))} ({line})")
+        elif "post" in i:
+            info(f"{head}; pre {i['pre']['ok']}/{i['pre']['requests']} at "
+                 f"{i['pre']['throughput_rps']} req/s, post "
+                 f"{i['post']['ok']}/{i['post']['requests']} at "
+                 f"{i['post']['throughput_rps']} req/s p99 "
+                 f"{i['post']['lat_p99_ms']} ms, post wall "
+                 f"{i['post_wall_s']} s ({line})")
+        else:
+            lp = i["latency_point"]
+            info(f"{head}; {i['ok']} of {i['requests']} answered, p50 "
+                 f"{i['lat_p50_ms']} ms, p99 {i['lat_p99_ms']} ms; latency"
+                 f" point at depth 32: {lp['throughput_rps']} req/s, p50 "
+                 f"{lp['lat_p50_ms']} ms, p99 {lp['lat_p99_ms']} ms ({line})")
+            for r in i.get("depth_sweep", []):
+                info(f"main {tag} sweep depth {r['depth']}: "
+                     f"{r['throughput_rps']} req/s, p50 {r['lat_p50_ms']} "
+                     f"ms, p99 {r['lat_p99_ms']} ms, errors {r['errors']}"
+                     + (" (knee)" if r["depth"] == i.get("knee_depth")
+                        else ""))
+            ch = i.get("consensus_health")
+            if ch:
+                info(f"main {tag} consensus health {json.dumps(ch)}")
+        info(f"main row {tag}: {_row_brief(row)}")
+
+
+# -- phase 11 ----------------------------------------------------------------
+
+
+def phase_chaos(device="cuda", scenarios=None):
+    """Phase 11: ``python -m gigapaxos_tpu_torch.chaos --seed 1`` in this
+    process over the default drill (or ``scenarios``) on the port's
+    columnar engine on ``device``: every row must hold all five
+    invariants, and its fault schedule must be the one the reference
+    recorded for seed 1 (``CHAOS_r02.json``'s fingerprints)."""
+    import contextlib
+    import io
+    import tempfile
+    from gigapaxos_tpu_torch.chaos import __main__ as chaos
+    from gigapaxos_tpu_torch.paxos.paxosconfig import PC
+    from gigapaxos_tpu_torch.utils.config import Config
+    Config.clear()
+    if device != "cuda":  # a rehearsal off the card
+        Config.set(PC.COLUMNAR_DEVICE, device)
+    names = list(scenarios or chaos.DEFAULT)
+    ref = json.loads((Path(__file__).resolve().parent
+                      / CHAOS_REFERENCE).read_text())
+    ref_fp = {r["scenario"]: r["schedule_fingerprint"] for r in ref["rows"]}
+    with tempfile.TemporaryDirectory(prefix="gp_chip_chaos_") as tmp:
+        path = Path(tmp) / "chaos.json"
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = chaos.main(["--seed", str(ref["seed"]), "--scenarios",
+                             ",".join(names), "--out", str(path)])
+        wall = time.perf_counter() - t0
+        counts = launches()
+        rows = json.loads(path.read_text())["rows"]
+    Config.clear()
+    _wait(lambda: not _runtime_threads(), 30.0,
+          "chaos: every node thread to end", _runtime_threads)
+    bad = [(r["scenario"], r.get("error") or r.get("violations"))
+           for r in rows if not r.get("ok")
+           or not all(r["invariants"].values())]
+    if rc or bad or len(rows) != len(names):
+        raise AssertionError(f"chaos: exit {rc}, rows failing: {bad}")
+    off = {r["scenario"]: r["schedule_fingerprint"] for r in rows
+           if r["schedule_fingerprint"] != ref_fp[r["scenario"]]}
+    if off:
+        raise AssertionError(f"chaos: fault schedules differ from "
+                             f"{CHAOS_REFERENCE}'s: {off}")
+    if device == "cuda":
+        require_waves(counts, "chaos", each=True)
+    return {"rows": rows, "launches": counts, "wall_s": wall}
+
+
+def _chaos_lines(ch, line):
+    for r in ch["rows"]:
+        f, s = r["faults"], r["storage_faults"]
+        info(f"chaos {r['scenario']}: {r['backend']} on {r['n_nodes']} "
+             f"nodes, {r['groups']} groups; invariants "
+             f"{json.dumps(r['invariants'])}; recovery {r['recovery_s']} s,"
+             f" {r['acked']} acked, {r['client_errors']} client errors, "
+             f"wall {r['wall_s']} s; faults dropped {f['dropped']}, "
+             f"blocked {f['blocked']}, delayed {f['delayed']}, reordered "
+             f"{f['reordered']}; storage fsync EIO {s['fsync_eio']}, "
+             f"ENOSPC {s['enospc']}; schedule {r['schedule_fingerprint']} "
+             f"(= {CHAOS_REFERENCE})"
+             + (f"; engine shards {r['engine_shards_timeline']}"
+                if "engine_shards_timeline" in r else "") + f" ({line})")
+    info(f"chaos: {len(ch['rows'])} scenarios in {ch['wall_s']:.3f} s, "
+         f"kernel launches {ch['launches']}")
+
+
+def _write_rows(path, mn, ch):
+    """Phases 10 and 11's rows, whole, as JSON at ``path`` (if given)."""
+    if path:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(json.dumps({
+            "main": [{"tag": t, "row": r, "launches": c, "wall_s": w}
+                     for t, r, c, w in mn or []],
+            "chaos": (ch or {}).get("rows", [])}, indent=1))
+
+
 def _ptxas_lines(names):
     """What ptxas said of each built library's kernels: the entry, its
     registers, shared memory and spills."""
@@ -2698,7 +2981,14 @@ def main(argv=None) -> int:
                     "unpacked in DIR against this tree's, in turns on one "
                     "card (both bit-exact first), and exit")
     ap.add_argument("--out", help="with --wave-ab: write its rows here as "
-                    "JSON")
+                    "JSON; otherwise phases 10 and 11's rows, whole")
+    ap.add_argument("--main-only", action="store_true",
+                    help="run only phase 10 (the bench CLI's modes), with "
+                    "recovery at 1M groups, config 5 and config 6 too, "
+                    "print their lines and exit")
+    ap.add_argument("--chaos-only", action="store_true",
+                    help="run only phase 11 (the chaos drill), print its "
+                    "lines and exit")
     ap.add_argument("--churn-only", action="store_true",
                     help="run only phases 9 and 9b (config 4 through the "
                     "control plane, then the server and client processes), "
@@ -2750,6 +3040,24 @@ def main(argv=None) -> int:
             _churn_lines(phase_churn(), line)
             _cli_lines(phase_cli(), line)
             info("churn-only: phases 9 and 9b")
+            return 0
+        if args.main_only:
+            _build.build_all()
+            mn = phase_main(modes=MAIN_ONLY_MODES)
+            _main_lines(mn, line)
+            _write_rows(args.out, mn, None)
+            info("main-only: phase 10 with its extras")
+            return 0
+        if args.chaos_only:
+            # built, loaded and launched before any node boots: the drill
+            # detects a failure at 1 s, and a first launch must not stall
+            # a worker that long
+            _build.build_all()
+            wave_submit_no_sync()
+            ch = phase_chaos()
+            _chaos_lines(ch, line)
+            _write_rows(args.out, None, ch)
+            info("chaos-only: phase 11")
             return 0
         if args.defaults:
             _build.build_all()
@@ -2825,6 +3133,11 @@ def main(argv=None) -> int:
         ch = phase_churn()
         _churn_lines(ch, line)
         _cli_lines(phase_cli(), line)
+        mn = phase_main()
+        _main_lines(mn, line)
+        drill = phase_chaos()
+        _chaos_lines(drill, line)
+        _write_rows(args.out, mn, drill)
     except Exception as e:  # every phase's failure ends the run non-zero
         import traceback
         traceback.print_exc()
@@ -2833,7 +3146,9 @@ def main(argv=None) -> int:
     paths = {"storm": [storm["launches"]], "spi": [spi["launches"]],
              "runtime": [rt["launches"]], "failover": [fo["launches"]],
              "replay": [r["launches"] for r in reps],
-             "lanes": [ln["launches"]], "churn": [ch["launches"]]}
+             "lanes": [ln["launches"]], "churn": [ch["launches"]],
+             "main": [c for _t, _r, c, _w in mn],
+             "chaos": [drill["launches"]]}
 
     def launched(name):
         by_path = {p: [c[name] for c in cs] for p, cs in paths.items()}

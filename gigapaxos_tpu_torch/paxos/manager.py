@@ -300,7 +300,7 @@ def _refuse_unported(bk: str) -> None:
     mesh = str(Config.get(PC.ENGINE_MESH)).strip().lower()
     refused = [
         (bk == "native", "backend='native' (the C++ per-instance engine, "
-         "NativeBackend; ROADMAP module 6)"),
+         "NativeBackend; ROADMAP module 6b)"),
         (mesh not in ("auto", "off") and int(mesh) > 1,
          "ENGINE_MESH > 1 (a device mesh; ROADMAP module 16)"),
         (bool(Config.get(PC.LOCK_WITNESS)),
@@ -2666,7 +2666,7 @@ class PaxosNode:
         (``cuda:accept``, ``cuda:acceptor_wave``, ``cuda:coordinator_wave``;
         0 off the card, where the wrappers run their plain versions).
         Read under the engine locks, as the reference's cost sweep."""
-        from gigapaxos_tpu_torch.ops import accept_cuda, wave_cuda
+        from gigapaxos_tpu_torch.utils.engineledger import kernel_launches
         with contextlib.ExitStack() as stack:
             for lk in self._locks_for(range(self.shards)):
                 stack.enter_context(lk)
@@ -2674,8 +2674,7 @@ class PaxosNode:
         return {"node": self.id,
                 "kernels": EngineLedger.kernels(),
                 "costs": costs,
-                "launches": {f"cuda:{k.name}": k.launches for k in
-                             (accept_cuda.accept,) + wave_cuda.KERNELS}}
+                "launches": kernel_launches()}
 
     def _groups_health(self) -> dict:
         """Node-wide consensus-health rollup from the host mirrors

@@ -39,7 +39,7 @@ class PC(ConfigKey):
     CHECKPOINT_INTERVAL = 400
     # backend: "columnar" (torch, CUDA kernels) or "scalar"
     # (interpreted per-instance oracle); "native" (the C++ per-instance
-    # engine) is not ported yet and raises (ROADMAP module 6 leftovers)
+    # engine) is not ported yet and raises (ROADMAP module 6b)
     BACKEND = "columnar"
     # row-sharded engine lanes (columnar backend only): partition the
     # group space into this many independent lanes (shard = group_key %

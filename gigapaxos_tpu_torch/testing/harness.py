@@ -36,6 +36,25 @@ def tscale(t: float) -> float:
     return t * _TSCALE
 
 
+def require_engine(backend: str) -> None:
+    """Raise, before any node is built, for an engine the port does not
+    have (``backend="native"``: ``NotImplementedError``) or for the
+    columnar engine on a CUDA device this machine lacks: the bench and
+    chaos CLIs run on ``PC.COLUMNAR_DEVICE`` and never move to the CPU
+    on their own (``GP_PC_COLUMNAR_DEVICE=cpu`` asks for it)."""
+    import torch
+
+    from gigapaxos_tpu_torch.paxos.manager import _refuse_unported
+    _refuse_unported(backend)
+    dev = str(Config.get(PC.COLUMNAR_DEVICE))
+    if backend == "columnar" and torch.device(dev).type == "cuda" \
+            and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for the columnar engine (PC.COLUMNAR_DEVICE"
+            f"={dev!r}); set GP_PC_COLUMNAR_DEVICE=cpu to run it on the "
+            "host CPU")
+
+
 def free_ports(n: int) -> List[int]:
     socks = [socket.socket() for _ in range(n)]
     for s in socks:

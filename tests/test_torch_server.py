@@ -7,8 +7,9 @@ on the CPU (``GP_PC_COLUMNAR_DEVICE=cpu`` in the servers' environment).
 An option the port has not ported (``BACKEND=native``) makes the server
 exit with ``NotImplementedError`` instead of running without it.
 
-``test_multiproc_throughput_mode`` has no counterpart yet: it drives
-``gigapaxos_tpu/testing/main.py``, whose port is ROADMAP module 14."""
+``tests/test_cli.py``'s ``test_multiproc_throughput_mode`` has its
+counterpart in ``tests/test_torch_main.py``, over the port's
+``testing/main.py``."""
 
 import os
 import subprocess

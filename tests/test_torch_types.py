@@ -109,12 +109,14 @@ bad = [m for m in sys.modules
 print(",".join(names), "BAD=" + ",".join(sorted(bad)))
 """
 
-# the node runtime's, the flight recorder's and the flight deck's
-# modules, which the walk must reach
+# the node runtime's, the flight recorder's, the flight deck's, the
+# bench CLI's and the chaos drill's modules, which the walk must reach
 _RUNTIME = ("paxos.manager", "net.transport", "paxos.client",
             "testing.harness", "testing.loadgen", "native", "blackbox",
             "blackbox.replay", "blackbox.__main__", "utils.prom",
-            "net.statshttp", "net.cluster", "utils.statsdump")
+            "net.statshttp", "net.cluster", "utils.statsdump",
+            "testing.main", "chaos.invariants", "chaos.scenarios",
+            "chaos.__main__")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
