@@ -19,9 +19,20 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    ``ColumnarBackend`` pads a wave, and on the storm's lanes —
    ``bal``, ``acc`` and all four output rows must be bit-identical;
    times per call (the storm's lanes also with L2 cold) and the byte
-   bound; the runtime's two wave kernels (``wave.cu``: the acceptor wave,
-   accept then commit; the coordinator wave, propose, own accept and own
-   vote, then the replies' votes and own commit) against their torch
+   bound; the storm's commit kernel (``commit.cu``) and
+   ``commit_reference`` on identical clones of a G=2^20, W=16 state with
+   inactive rows, advanced cursors and decided slots behind a gap at
+   each cursor, at B = 1, 8, 4096, 4099 and 2^18 over several seeds
+   (past 8 also half live and padded as the backend pads), at B = 2^21,
+   on 4096 lanes crowded onto 64 rows (gaps closed out of lane order
+   across CTAs), on the storm's lanes and with cursors near INT32_MAX
+   (the window wraps) — ``dec``, ``exec_cursor`` and all four output
+   rows on every lane bit-identical — with times (L2 warm and cold),
+   the plain version's time, the byte bound and the launch floor (an
+   empty kernel launched as it is); the runtime's two wave kernels
+   (``wave.cu``: the acceptor wave, accept then commit; the coordinator
+   wave, propose, own accept and own vote, then the replies' votes and
+   own commit) against their torch
    bodies on phase 5's and phase 8's slabs at every bucket over several
    seeds, with both halves and with each half alone, and, each half
    alone too, at the seams of their launch geometry (one CTA up to 512
@@ -42,9 +53,10 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    (chunked), the install of its acked rows and the pause path's row
    snapshots and restores — bit-identical;
 3. the decide storm: ``make_fleet(2**20, 16, R=3)`` and several
-   ``decide_storm_step`` calls at B = 2^18 — every step decides every
-   granted lane, the replicas' ``dec`` planes agree, and ``exec_cursor``
-   matches a recount from the lanes;
+   ``decide_storm_step`` calls at B = 2^18, each step's three commits
+   (the commit kernel) under ``torch.cuda.set_sync_debug_mode("error")``
+   — every step decides every granted lane, the replicas' ``dec`` planes
+   agree, and ``exec_cursor`` matches a recount from the lanes;
 4. the SPI engine: three ``ColumnarBackend(2**20, 16)`` run the
    propose → accept ×3 → accept_reply ×3 → commit ×3 pipeline at
    B = 16384 lanes a wave (four 4096-lane chunks), plus fused
@@ -131,10 +143,11 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
 
 The kernels' launch counters, reset just before each of phases 3 to 11
 (each mode of phase 10) and read just after, must show that those paths
-went through their kernels: exact counts of the accept kernel and of no
-wave kernel in the storm (it keeps its torch bodies), of the accept
-kernel (plain accept waves) and the acceptor wave kernel (commits and
-fused acceptor waves) in the SPI phase, each wave kernel at least once
+went through their kernels: exact counts of the accept and commit
+kernels and of no wave kernel in the storm (its propose and
+accept_reply stay torch bodies), of the accept kernel (plain accept
+waves), the acceptor wave kernel (commits and fused acceptor waves) and
+no commit kernel in the SPI phase, each wave kernel at least once
 in phases 5, 8 and 11, one of them at least after the kill and in each
 replay, the accept kernel and the acceptor wave kernel in phase 9, and a
 launch in every mode of phase 10; phases 5, 8 and 9 also print each wave
@@ -167,7 +180,10 @@ whole.
 checkout unpacked in DIR (``git archive <rev> gigapaxos_tpu_torch``)
 against this tree's in one process, in turns (parent, this, this,
 parent), on phase 2's timed chunks and each half alone, both held
-bit-exact first.
+bit-exact first.  ``--storm-ab DIR [--out FILE]`` runs phase 3 of an
+older checkout unpacked in DIR (``git archive <rev>``, its
+``chip_smoke.py`` included) and of this tree in turns (parent, this,
+this, parent), a process a run, and prints each run's decisions/s.
 """
 
 from __future__ import annotations
@@ -315,15 +331,21 @@ def info(msg: str) -> None:
     print(msg, flush=True)
 
 
-KERNEL_NAMES = ("accept", "acceptor_wave", "coordinator_wave")
+KERNEL_NAMES = ("accept", "commit", "acceptor_wave", "coordinator_wave")
+
+
+def _wrappers():
+    from gigapaxos_tpu_torch.ops import wave_cuda
+    from gigapaxos_tpu_torch.ops.accept_cuda import accept
+    from gigapaxos_tpu_torch.ops.commit_cuda import commit
+    return (accept, commit) + wave_cuda.KERNELS
 
 
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0, and the wave kernels'
     counts by bucket."""
     from gigapaxos_tpu_torch.ops import wave_cuda
-    from gigapaxos_tpu_torch.ops.accept_cuda import accept
-    for k in (accept,) + wave_cuda.KERNELS:
+    for k in _wrappers():
         k.launches = 0
     for k in wave_cuda.KERNELS:
         k.by_bucket = {}
@@ -331,11 +353,7 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
-    from gigapaxos_tpu_torch.ops import wave_cuda
-    from gigapaxos_tpu_torch.ops.accept_cuda import accept
-    out = {"accept": accept.launches}
-    out.update({k.name: k.launches for k in wave_cuda.KERNELS})
-    return out
+    return {k.name: k.launches for k in _wrappers()}
 
 
 def bucket_launches() -> dict:
@@ -609,6 +627,250 @@ def phase_parity(name_line):
     del base, lanes, out, st
     torch.cuda.empty_cache()
     return rows, max_err
+
+
+# -- phase 2: the storm's commit kernel -------------------------------------
+
+COMMIT_BS = (1, 8, 4096, 4099, 1 << 18)
+INT32_MAX = (1 << 31) - 1
+
+
+def commit_state(G, W, gen, active_share=0.9, near_max=False):
+    """``parity_state`` with decided slots ahead of each cursor behind a
+    gap at it (each other column holds the slot a window earlier); with
+    ``near_max`` the cursors lie in [INT32_MAX - 2W, INT32_MAX], where
+    the window and the scan wrap."""
+    st = parity_state(G, W, gen, active_share)
+    dev = st.device
+    if near_max:
+        st.exec_cursor = INT32_MAX - torch.randint(
+            0, 2 * W + 1, (G,), generator=gen, device=dev,
+            dtype=torch.int32)
+    k = torch.arange(W, dtype=torch.int32, device=dev)
+    slots = st.exec_cursor[:, None] + k[None, :]  # wraps as int32
+    decided = (torch.rand((G, W), generator=gen, device=dev) < 0.5) & \
+        (k[None, :] >= 1)
+    cols = (slots % W).long()
+    st.dec[:, :, 0].scatter_(1, cols, torch.where(decided, slots, slots - W))
+    for c in (1, 2):
+        st.dec[:, :, c] = torch.randint(-(1 << 31), (1 << 31) - 1, (G, W),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32)
+    return st
+
+
+def commit_lanes(st, B, gen, lo=-4, hi=None):
+    """B lanes with distinct (row, slot) pairs (the kernel's
+    precondition) on random rows: offsets from the row's cursor in
+    [lo, hi) (stale, in the window, beyond it), a third of them at 0
+    (each closes its row's gap), ~10% invalid lanes."""
+    dev = st.device
+    hi = st.W + 4 if hi is None else hi
+    span = hi - lo
+    m = 2 * B + 64
+    off = torch.where(torch.rand(m, generator=gen, device=dev) < 0.3, -lo,
+                      torch.randint(0, span, (m,), generator=gen,
+                                    device=dev))
+    keys = (torch.randint(0, st.G, (m,), generator=gen, device=dev,
+                          dtype=torch.int64) * span + off).unique()
+    keys = keys[torch.randperm(keys.numel(), generator=gen,
+                               device=dev)[:B]]
+    assert keys.numel() == B
+    g = (keys // span).to(torch.int32)
+    slot = st.exec_cursor[g.long()] + (keys % span + lo).to(torch.int32)
+    rlo, rhi = _req_ids(B, gen, dev)
+    valid = torch.rand(B, generator=gen, device=dev) < 0.9
+    return g, slot, rlo, rhi, valid
+
+
+def padded_commit_lanes(st, n, B, gen):
+    """n lanes of ``commit_lanes``, every one valid, padded to B as
+    ``ColumnarBackend`` pads a wave: row 0, ``NO_SLOT``, request id 0,
+    invalid."""
+    from gigapaxos_tpu_torch.ops.types import NO_SLOT
+    g, slot, rlo, rhi, _ = commit_lanes(st, n, gen)
+
+    def pad(t, fill):
+        return torch.cat([t, torch.full((B - n,), fill, dtype=t.dtype,
+                                        device=t.device)])
+
+    valid = torch.arange(B, device=st.device) < n
+    return pad(g, 0), pad(slot, NO_SLOT), pad(rlo, 0), pad(rhi, 0), valid
+
+
+def storm_commit_lanes(st, B, gen):
+    """The storm's commits: B lanes on random rows (repeated), the lanes
+    of a row on consecutive slots from its cursor in lane order (the
+    proposer's run rank), those within the window valid, so the run of
+    each row's stores closes from the cursor on."""
+    dev = st.device
+    g = torch.randint(0, st.G, (B,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    gs, order = torch.sort(g.long(), stable=True)
+    idx = torch.arange(B, device=dev)
+    first = torch.ones(B, dtype=torch.bool, device=dev)
+    first[1:] = gs[1:] != gs[:-1]
+    start = torch.where(first, idx, 0).cummax(0).values
+    rank = torch.empty(B, dtype=torch.int64, device=dev)
+    rank[order] = idx - start
+    slot = st.exec_cursor[g.long()] + rank.to(torch.int32)
+    rlo, rhi = _req_ids(B, gen, dev)
+    return g, slot, rlo, rhi, rank < st.W
+
+
+def contended_commit_lanes(st, B, rows, gen):
+    """``contended_lanes``' B lanes on ``rows`` rows (each row's slots
+    from 8 below its cursor up, every window slot among them, lanes
+    shuffled): each row's gap closes out of lane order, and its scan
+    advances over slots other CTAs stored."""
+    g, slot, _bal, rlo, rhi, valid = contended_lanes(st, B, rows, gen)
+    return g, slot, rlo, rhi, valid
+
+
+def clone_commit(st):
+    """The state with its two planes the commit writes copied."""
+    return dataclasses.replace(st, dec=st.dec.clone(),
+                               exec_cursor=st.exec_cursor.clone())
+
+
+def check_commit(base, lanes, what):
+    """The kernel and ``commit_reference`` on identical clones of
+    ``base``: all four output rows on every lane (padding lanes read row
+    0's new cursor in both), ``dec`` and ``exec_cursor`` must be
+    bit-identical.  Returns the max abs error (0), the reference's
+    output and state."""
+    from gigapaxos_tpu_torch.ops.commit_cuda import commit, commit_reference
+    st_k, st_r = clone_commit(base), clone_commit(base)
+    out_k = commit(st_k, *lanes)
+    out_r = commit_reference(st_r, *lanes)
+    torch.cuda.synchronize()
+    max_err = 0
+    for name, a, b in (("out", out_k, out_r), ("dec", st_k.dec, st_r.dec),
+                       ("exec_cursor", st_k.exec_cursor,
+                        st_r.exec_cursor)):
+        err = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+        max_err = max(max_err, err)
+        if not torch.equal(a, b):
+            raise AssertionError(f"commit kernel != commit_reference: "
+                                 f"{name} ({what}, max abs err {err})")
+    return max_err, out_r, st_r
+
+
+def commit_bytes(base, lanes, out, after) -> int:
+    """Bytes the commit must move for these lanes, ``after`` being the
+    state it left from ``base``: each lane input read once and each
+    output written once; each touched row's ``active`` and
+    ``exec_cursor`` read once; each stored decision written once (12 B);
+    on each row that stored, the ``dec`` slot words its scan reads (the
+    advance and the word that ends it, at most W); each raised cursor
+    written once."""
+    g, slot, rlo, rhi, valid = lanes
+    B, W = g.numel(), base.W
+    gi = torch.where(valid, g, 0).long()
+    rows = gi.unique()
+    stored = out[0] != 0
+    scanned = gi[stored].unique()
+    adv = after.exec_cursor[scanned].long() - base.exec_cursor[scanned].long()
+    raised = int((after.exec_cursor != base.exec_cursor).sum())
+    return B * (4 * 4 + 1) + B * 4 * 4 + rows.numel() * (1 + 4) + \
+        int(stored.sum()) * 12 + 4 * int(torch.clamp(adv + 1, max=W).sum()) \
+        + raised * 4
+
+
+def time_commit(base, lanes, out, after, hbm):
+    """Kernel times with L2 warm (the touched rows just restored) and
+    cold (flushed after the restore), the plain version's time (warm),
+    the launch floor (an empty kernel launched as the kernel is), each
+    on ``base``'s rows restored before every timed call, and the byte
+    bound of the call that gave ``out`` and ``after``."""
+    from gigapaxos_tpu_torch.ops.commit_cuda import commit, commit_reference
+    g, _slot, _rlo, _rhi, valid = lanes
+    rows = torch.where(valid, g, 0).long().unique()
+    saved_dec, saved_cur = base.dec[rows], base.exec_cursor[rows]
+    st = clone_commit(base)
+
+    def restore():
+        st.dec.index_copy_(0, rows, saved_dec)
+        st.exec_cursor.index_copy_(0, rows, saved_cur)
+
+    flush = l2_flusher()
+
+    def cold():
+        restore()
+        flush()
+
+    nbytes = commit_bytes(base, lanes, out, after)
+    return {"ms": device_ms(lambda: commit(st, *lanes), before=restore),
+            "ms_cold": device_ms(lambda: commit(st, *lanes), before=cold),
+            "plain_ms": device_ms(lambda: commit_reference(st, *lanes),
+                                  before=restore),
+            "floor_ms": device_ms(lambda: commit.floor(g.numel()),
+                                  before=restore),
+            "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3,
+            "stores": int((out[0] != 0).sum())}
+
+
+def phase_commit_parity(name_line):
+    """The commit kernel against ``commit_reference`` on the card, on
+    identical clones of a G=2^20, W=16 state with inactive rows,
+    advanced cursors and decided slots behind a gap at each cursor: at
+    ``COMMIT_BS`` over ``PARITY_SEEDS``, with lanes padded as the
+    backend pads, at ``BIG_B`` (past the co-resident grid), on the
+    contended lanes, on the storm's lanes (an all-active state) and
+    with cursors near INT32_MAX.  Times at each width (seed 0) and on
+    the storm's lanes."""
+    hbm = HBM_BYTES_PER_S["pcie" if "PCIe" in name_line else "default"]
+    rows = {}
+    max_err = 0
+    checked = 0
+
+    def held(base, lanes, what, key=None):
+        nonlocal max_err, checked
+        err, out, after = check_commit(base, lanes, what)
+        max_err = max(max_err, err)
+        checked += 1
+        if key is not None:
+            rows[key] = time_commit(base, lanes, out, after, hbm)
+
+    for seed in PARITY_SEEDS:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        base = commit_state(G_FULL, W_FULL, gen)
+        first = seed == PARITY_SEEDS[0]
+        for B in COMMIT_BS:
+            held(base, commit_lanes(base, B, gen), f"seed {seed}, B={B}",
+                 str(B) if first else None)
+            if B > 8:
+                held(base, padded_commit_lanes(base, B // 2, B, gen),
+                     f"seed {seed}, {B // 2} of B={B} padded")
+        if first:
+            held(base, commit_lanes(base, BIG_B, gen),
+                 f"seed {seed}, B={BIG_B}", str(BIG_B))
+            B, n_rows = CONTENDED
+            held(base, contended_commit_lanes(base, B, n_rows, gen),
+                 f"contended, {B} lanes on {n_rows} rows",
+                 f"contended_{B}")
+        del base
+        base = commit_state(G_FULL, W_FULL, gen, near_max=True)
+        held(base, commit_lanes(base, STORM_B, gen, lo=-2,
+                                hi=W_FULL + 2),
+             f"seed {seed}, cursors near INT32_MAX, B={STORM_B}")
+        del base
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(PARITY_SEEDS[0])
+    base = commit_state(G_FULL, W_FULL, gen, active_share=1.0)
+    held(base, storm_commit_lanes(base, STORM_B, gen), "storm lanes",
+         f"storm_{STORM_B}")
+    del base
+    torch.cuda.empty_cache()
+    for k, r in rows.items():
+        info(f"commit {k}: kernel {r['ms']:.4f} ms (L2 warm), "
+             f"{r['ms_cold']:.4f} ms (cold), plain {r['plain_ms']:.4f} ms, "
+             f"bound {r['bound_ms']:.6f} ms ({r['bytes']} B at "
+             f"{hbm / 1e12:.2f} TB/s), floor {r['floor_ms']:.4f} ms (an "
+             f"empty kernel launched as it is), {r['stores']} stores, "
+             f"bit-exact [{name_line}]")
+    return rows, max_err, checked
 
 
 # -- phase 2: the runtime's wave kernels ------------------------------------
@@ -1078,6 +1340,51 @@ def phase_wave_ab(parent, name_line, out_path=None):
     return rows
 
 
+# run in each tree's root: STORM_AB_RUNS storms, the first loading the
+# kernels
+STORM_AB_RUNS = 6
+STORM_AB_CODE = (
+    "import json; import chip_smoke as c; "
+    "from gigapaxos_tpu_torch.ops import _build; _build.build_all(); "
+    f"runs = [c.phase_storm() for _ in range({STORM_AB_RUNS})]; "
+    "print('storm-ab ' + json.dumps([r['decisions_per_s'] for r in runs]))")
+
+
+def phase_storm_ab(parent, name_line, out_path=None):
+    """The decide storm's decisions/s (phase 3) of this tree against an
+    older checkout's (``parent``: a directory holding its
+    ``chip_smoke.py`` and ``gigapaxos_tpu_torch``, say one unpacked by
+    ``git archive``) on one card, in turns, parent, this, this, parent:
+    each run a process of its own in its tree's root, building that
+    tree's kernels and running phase 3 ``STORM_AB_RUNS`` times (the
+    median of all but the first, which loads the kernels, is compared).
+    Each tree's phase 3 checks its own decisions and launches.  Writes
+    the rows as JSON to ``out_path`` if given."""
+    trees = {"parent": Path(parent).resolve(),
+             "this": Path(__file__).resolve().parent}
+    rows = []
+    for tag in ("parent", "this", "this", "parent"):
+        proc = subprocess.run([sys.executable, "-c", STORM_AB_CODE],
+                              cwd=trees[tag], capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"storm-ab: the {tag} tree failed:\n"
+                               f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        got = [ln for ln in proc.stdout.splitlines()
+               if ln.startswith("storm-ab ")]
+        runs = json.loads(got[-1][len("storm-ab "):])
+        med = statistics.median(runs[1:])
+        rows.append({"tree": tag, "decisions_per_s": med, "runs": runs})
+        info(f"storm-ab {tag}: {med:.0f} decisions/s, the median of "
+             f"{', '.join(f'{r:.0f}' for r in runs[1:])} (the process's "
+             f"first storm {runs[0]:.0f}) [{name_line}]")
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(json.dumps(
+            {"card": name_line, "rows": rows}, indent=1))
+    return rows
+
+
 def wave_submit_no_sync():
     """One fused acceptor and one fused coordinator wave submitted on a
     runtime-sized ``ColumnarBackend`` under
@@ -1355,6 +1662,11 @@ def phase_phase1_parity(device="cuda"):
 
 
 def phase_storm():
+    """``STORM_STEPS`` decide-storm steps at full width, each step's
+    commits (three launches of the commit kernel) under
+    ``torch.cuda.set_sync_debug_mode("error")``: they must not
+    synchronize the host with the card."""
+    from gigapaxos_tpu_torch.ops import kernels
     from gigapaxos_tpu_torch.ops.storm import decide_storm_step, make_fleet
     G, W, R, B = G_FULL, W_FULL, R_FULL, STORM_B
     states = make_fleet(G, W, R)
@@ -1372,23 +1684,36 @@ def phase_storm():
                             dtype=torch.int32)
         valid = torch.ones(B, dtype=torch.bool, device=dev)
         steps.append((g, rlo, rhi, valid))
+    commit_batch = kernels.commit_batch
+
+    def commit_no_sync(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return commit_batch(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
     torch.cuda.synchronize()
     reset_launches()
     decided_total = 0
     wall = 0.0
-    for i, (g, rlo, rhi, valid) in enumerate(steps):
-        t0 = time.perf_counter()
-        states, n = decide_storm_step(states, g, rlo, rhi, valid)
-        decided = int(n)  # synchronizes
-        wall += time.perf_counter() - t0
-        # granted == per group min(lanes, W): every earlier slot decided
-        per_group = torch.bincount(g.long(), minlength=G).clamp(max=W)
-        granted = int(per_group.sum())
-        cursor_want += per_group
-        if decided != granted:
-            raise AssertionError(f"storm step {i}: decided {decided} != "
-                                 f"granted {granted}")
-        decided_total += decided
+    kernels.commit_batch = commit_no_sync  # the storm calls it by name
+    try:
+        for i, (g, rlo, rhi, valid) in enumerate(steps):
+            t0 = time.perf_counter()
+            states, n = decide_storm_step(states, g, rlo, rhi, valid)
+            decided = int(n)  # synchronizes
+            wall += time.perf_counter() - t0
+            # granted == per group min(lanes, W): every earlier slot decided
+            per_group = torch.bincount(g.long(), minlength=G).clamp(max=W)
+            granted = int(per_group.sum())
+            cursor_want += per_group
+            if decided != granted:
+                raise AssertionError(f"storm step {i}: decided {decided} "
+                                     f"!= granted {granted}")
+            decided_total += decided
+    finally:
+        kernels.commit_batch = commit_batch
     counts = launches()
     for r in range(R):
         if not torch.equal(states[r].exec_cursor.long(), cursor_want):
@@ -1398,10 +1723,10 @@ def phase_storm():
             raise AssertionError(f"storm: replica {r} dec plane differs")
     del states
     torch.cuda.empty_cache()
-    # one accept launch a replica a step; the storm keeps its torch bodies
-    # for the other steps, so no wave kernel runs
-    want = {"accept": STORM_STEPS * R, "acceptor_wave": 0,
-            "coordinator_wave": 0}
+    # one accept and one commit launch a replica a step; propose and
+    # accept_reply stay torch bodies, and no wave kernel runs
+    want = {"accept": STORM_STEPS * R, "commit": STORM_STEPS * R,
+            "acceptor_wave": 0, "coordinator_wave": 0}
     if counts != want:
         raise AssertionError(f"storm: launches {counts} != {want}")
     return {"decided": decided_total, "wall_s": wall,
@@ -2064,11 +2389,13 @@ def _check_scrapes(node, n_groups, slab_bytes, cuda=True):
             for r in ks["costs"].values()):
         raise AssertionError(f"lanes: node {node.id} /engine/kernels "
                              f"{ks['costs']}")
-    # on the card, one ledger row a CUDA library (the accept kernel's and
-    # the wave kernels'), each loaded
+    # on the card, one ledger row a CUDA library built or loaded in this
+    # process (the commit kernel's only where an earlier phase ran it), the
+    # runtime's two (the accept kernel's and the wave kernels') loaded
     libs = {k: r for k, r in ks["kernels"].items() if k.startswith("cuda:")}
-    if cuda and set(libs) != {"cuda:accept", "cuda:wave"} or any(
-            r["loads"] < 1 for r in libs.values()):
+    ran = ("cuda:accept", "cuda:wave")
+    if cuda and (not set(ran) <= set(libs) <= {*ran, "cuda:commit"} or any(
+            libs[k]["loads"] < 1 for k in ran)):
         raise AssertionError(f"lanes: node {node.id} /engine/kernels "
                              f"ledger rows {ks['kernels']}")
     series = exposition_series(_scrape(port, "/metrics").decode())
@@ -2980,8 +3307,13 @@ def main(argv=None) -> int:
                     help="time the wave kernels of an older checkout "
                     "unpacked in DIR against this tree's, in turns on one "
                     "card (both bit-exact first), and exit")
-    ap.add_argument("--out", help="with --wave-ab: write its rows here as "
-                    "JSON; otherwise phases 10 and 11's rows, whole")
+    ap.add_argument("--storm-ab", metavar="DIR",
+                    help="run the decide storm (phase 3) of an older "
+                    "checkout unpacked in DIR and of this tree in turns on "
+                    "one card, one process a run, and exit")
+    ap.add_argument("--out", help="with --wave-ab or --storm-ab: write its "
+                    "rows here as JSON; otherwise phases 10 and 11's rows, "
+                    "whole")
     ap.add_argument("--main-only", action="store_true",
                     help="run only phase 10 (the bench CLI's modes), with "
                     "recovery at 1M groups, config 5 and config 6 too, "
@@ -3014,6 +3346,10 @@ def main(argv=None) -> int:
             _ptxas_lines(_build.build_all())
             phase_wave_ab(args.wave_ab, line, args.out)
             info(f"wave-ab: {args.wave_ab} against this tree")
+            return 0
+        if args.storm_ab:
+            phase_storm_ab(args.storm_ab, line, args.out)
+            info(f"storm-ab: {args.storm_ab} against this tree")
             return 0
         if args.runtime_only:
             _build.build_all()
@@ -3079,6 +3415,14 @@ def main(argv=None) -> int:
         _ptxas_lines(secs)
 
         timing, max_err = phase_parity(line)
+        ctiming, commit_err, commit_checked = phase_commit_parity(line)
+        info(f"parity: commit kernel bit-identical to commit_reference in "
+             f"{commit_checked} calls: G={G_FULL}, W={W_FULL} with decided "
+             f"slots behind a gap at each cursor, B={list(COMMIT_BS)} over "
+             f"seeds {list(PARITY_SEEDS)}, each past 8 also half live and "
+             f"padded; B={BIG_B}; {CONTENDED[0]} lanes on {CONTENDED[1]} "
+             f"rows; the storm's lanes at B={STORM_B}; cursors near "
+             f"INT32_MAX at B={STORM_B}, each seed")
         wtiming, wave_err, wave_checked = phase_wave_parity(line)
         info(f"parity: the acceptor and coordinator wave kernels "
              f"bit-identical to their torch bodies in {wave_checked} "
@@ -3173,6 +3517,27 @@ def main(argv=None) -> int:
         "library_ms": None,
         "by_lanes": timing,
     }]
+    big = ctiming[str(STORM_B)]
+    n, by_path = launched("commit")
+    kernels.append({
+        "name": "commit",
+        "route": "cuda",
+        "source": "gigapaxos_tpu_torch/ops/csrc/commit.cu",
+        "replaces": "gigapaxos_tpu/ops/kernels.py:301",
+        "launches": n,
+        "launches_by_path": by_path,
+        "parity": "bit-exact",
+        "max_abs_err": commit_err,
+        "lanes": STORM_B,
+        "ms": big["ms"],
+        "ms_cold_l2": big["ms_cold"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": "bytes",
+        "floor_ms": big["floor_ms"],
+        "library_ms": None,
+        "by_lanes": ctiming,
+    })
     for name, replaces in (("acceptor_wave", "gigapaxos_tpu/ops/kernels.py:644"),
                            ("coordinator_wave",
                             "gigapaxos_tpu/ops/kernels.py:629")):

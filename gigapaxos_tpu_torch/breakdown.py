@@ -26,11 +26,11 @@ Runs the port's two main paths at full scale under ``torch.profiler``:
 For each it reports the host wall per step and decisions per second
 (profiler off), then, from a profiled window of as many steps, the
 device busy share (device-side event time over that window's wall), the
-top device kernels by time with their share, and the accept kernel's
-and the wave kernels' shares (found by their names,
-``accept_cuda.KERNEL_NAME`` and each ``wave_cuda`` kernel's
-``kernel_name``; a window that launched one but shows no time for it is
-an error, not a 0% share).
+top device kernels by time with their share, and the accept, commit
+and wave kernels' shares (found by their names,
+``accept_cuda.KERNEL_NAME``, ``commit_cuda.KERNEL_NAME`` and each
+``wave_cuda`` kernel's ``kernel_name``; a window that launched one but
+shows no time for it is an error, not a 0% share).
 One warm-up step precedes both windows.  For ``wave`` it reports the
 host wall of a wave (median and mean), alone, with three engine threads
 and beside a Python-only thread, the
@@ -84,14 +84,16 @@ def _profile(step, steps: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from gigapaxos_tpu_torch.ops import wave_cuda
+    from gigapaxos_tpu_torch.ops import commit_cuda, wave_cuda
     from gigapaxos_tpu_torch.ops.accept_cuda import KERNEL_NAME, accept
+    commit = commit_cuda.commit
     step()  # warm-up, outside both windows
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     decisions = sum(step() for _ in range(steps))
     wall = time.perf_counter() - t0
     launches = accept.launches
+    commit_launches = commit.launches
     wave_launches = sum(k.launches for k in wave_cuda.KERNELS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -101,6 +103,7 @@ def _profile(step, steps: int) -> dict:
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     launches = accept.launches - launches
+    commit_launches = commit.launches - commit_launches
     wave_launches = sum(k.launches for k in wave_cuda.KERNELS) - \
         wave_launches
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
@@ -113,6 +116,13 @@ def _profile(step, steps: int) -> dict:
         raise RuntimeError(f"breakdown: the accept kernel launched "
                            f"{launches} times but the profiler shows no "
                            f"device time for {KERNEL_NAME}")
+    commit_us = sum(us for k, us, _ in rows
+                    if commit_cuda.KERNEL_NAME in k)
+    if commit_launches and not commit_us:
+        raise RuntimeError(f"breakdown: the commit kernel launched "
+                           f"{commit_launches} times but the profiler "
+                           f"shows no device time for "
+                           f"{commit_cuda.KERNEL_NAME}")
     wave_us = sum(us for k, us, _ in rows
                   if any(w.kernel_name in k for w in wave_cuda.KERNELS))
     if wave_launches and not wave_us:
@@ -130,6 +140,10 @@ def _profile(step, steps: int) -> dict:
         else 0.0,
         "accept_kernel_us_per_step": accept_us / steps,
         "accept_launches_per_step": launches / steps,
+        "commit_kernel_share_of_device": commit_us / busy_us if busy_us
+        else 0.0,
+        "commit_kernel_us_per_step": commit_us / steps,
+        "commit_launches_per_step": commit_launches / steps,
         "wave_kernel_share_of_device": wave_us / busy_us if busy_us
         else 0.0,
         "wave_kernel_us_per_step": wave_us / steps,
@@ -424,6 +438,9 @@ def main(argv=None) -> int:
               f"{r['accept_kernel_us_per_step']:.1f} us/step in "
               f"{r['accept_launches_per_step']:.0f} launches "
               f"({r['accept_kernel_share_of_device']:.2%} of device time), "
+              f"commit kernel {r['commit_kernel_us_per_step']:.1f} us/step "
+              f"in {r['commit_launches_per_step']:.0f} launches "
+              f"({r['commit_kernel_share_of_device']:.2%}), "
               f"wave kernels {r['wave_kernel_us_per_step']:.1f} us/step in "
               f"{r['wave_launches_per_step']:.0f} launches "
               f"({r['wave_kernel_share_of_device']:.2%}) [{card}]")

@@ -22,11 +22,11 @@
 // - accept (accept_dev.cuh, shared with accept.cu): gather active,
 //   exec_cursor and bal; raise bal[g] by atomicMax | barrier | read the
 //   post-batch bal[g], decide, store acc[g, slot%W].
-// - commit: gather active and the pre-batch exec_cursor, store
-//   dec[g, slot%W] = {slot, rlo, rhi} on in-window lanes | barrier | the
-//   contiguity scan (adv = leading k < W with dec[g,(cur+k)%W].slot ==
-//   cur+k; the torch body's cumprod), atomicMax exec_cursor[g] with cur+adv
-//   | barrier | read the new cursor.
+// - commit (commit_dev.cuh, shared with commit.cu): gather active and the
+//   pre-batch exec_cursor, store dec[g, slot%W] = {slot, rlo, rhi} on
+//   in-window lanes | barrier | the contiguity scan (adv = leading k < W
+//   with dec[g,(cur+k)%W].slot == cur+k; the torch body's cumprod),
+//   atomicMax exec_cursor[g] with cur+adv | barrier | read the new cursor.
 // - propose: gather active, the coordinator flags, next_slot and
 //   exec_cursor; the run rank of each lane among the earlier lanes of its
 //   group (the stable lexsort of kernels.py:_run_rank) | barrier | slot =
@@ -82,7 +82,10 @@
 //   writes are read through L2 (__ldcg), the ones it only reads by the
 //   read-only path.
 // - The contiguity scan issues the kScan slot words of a row at once (W
-//   independent loads, one round trip) and counts the leading matches.
+//   independent loads, one round trip) and counts the leading matches; a
+//   lane that advances nothing issues no atomic.  The commit step's lane
+//   decision, store and advance are commit_dev.cuh's, which the storm's
+//   commit kernel (commit.cu) shares.
 // - The run rank without a sort: inside a warp __match_any_sync gives each
 //   lane its peers, and __popc of the earlier peers its rank there.  One
 //   leader a key and warp enters the key in the CTA's shared-memory hash
@@ -103,9 +106,10 @@
 //   word, next_slot) after the barrier that orders it.
 //
 // Registers, shared memory and spills (-Xptxas -v, sm_90a, CUDA 12.8): the
-// acceptor wave 53 registers in one CTA and in a cluster, the coordinator
-// wave 48 in one CTA and 74 in a cluster (its lookups in the other CTAs'
-// tables), the launch-floor kernel 4; no spills, no stack, no static
+// acceptor wave 48 registers in one CTA and in a cluster (53 before its
+// commit step became commit_dev.cuh's), the coordinator wave 48 in one CTA
+// and 74 in a cluster (its lookups in the other CTAs' tables), the
+// launch-floor kernel 4; no spills, no stack, no static
 // shared memory.  The coordinator wave's tables are dynamic shared memory,
 // 32 B a slot, twice as many slots as threads, a table for propose and the
 // own vote with a request half and one for the replies' vote: 96 KB a CTA
@@ -124,6 +128,7 @@
 #include <stdint.h>
 
 #include "accept_dev.cuh"
+#include "commit_dev.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -372,51 +377,23 @@ __device__ CommitLane commit_lane(const Planes& s, const int* in, int B,
   return c;
 }
 
-// adv = the leading k < W with dec[row, (cur + k) % W].slot == cur + k:
-// the row's slot words loaded kScan at a time, each group at once
-__device__ int scan_advance(const Planes& s, int row, int cur) {
-  const int* drow = s.dec + (size_t)row * s.W * 3;
-  for (int k0 = 0; k0 < s.W; k0 += kScan) {
-    int got[kScan];
-#pragma unroll
-    for (int j = 0; j < kScan; ++j) {
-      const int k = k0 + j;
-      got[j] = k < s.W
-                   ? __ldcg(drow + gp::floor_mod(gp::add_wrap(cur, k), s.W) * 3)
-                   : 0;
-    }
-#pragma unroll
-    for (int j = 0; j < kScan; ++j) {
-      const int k = k0 + j;
-      if (k >= s.W || got[j] != gp::add_wrap(cur, k)) return k;
-    }
-  }
-  return s.W;
-}
-
 // commit: the stores | barrier | the scan and advance | barrier | the new
 // cursor; outputs applied, stale, out_window (where given), new_cursor
 template <bool kCl>
 __device__ void commit_step(const Planes& s, bool on, const CommitLane& c,
                             int i, int* o_applied, int* o_stale, int* o_ow,
                             int* o_cursor) {
-  const int hi = gp::add_wrap(c.cur, s.W);
-  const bool store = on && c.live && c.slot >= c.cur && c.slot < hi;
+  const gp::CommitDecision d = gp::commit_decide(on && c.live, c.slot, c.cur,
+                                                 s.W);
   if (on) {
-    o_applied[i] = store;
-    o_stale[i] = c.live && c.slot < c.cur;
-    if (o_ow) o_ow[i] = c.live && c.slot >= hi;
-    if (store) {
-      int* d = s.dec + ((size_t)c.row * s.W + gp::floor_mod(c.slot, s.W)) * 3;
-      d[0] = c.slot;
-      d[1] = c.rlo;
-      d[2] = c.rhi;
-    }
+    o_applied[i] = d.store;
+    o_stale[i] = d.stale;
+    if (o_ow) o_ow[i] = d.out_window;
+    if (d.store) gp::commit_store(s.dec, c.row, s.W, c.slot, c.rlo, c.rhi);
   }
   wave_barrier<kCl>();  // every store of the batch before any scan
-  if (store)
-    atomicMax(s.cursor + c.row,
-              gp::add_wrap(c.cur, scan_advance(s, c.row, c.cur)));
+  if (d.store)
+    gp::commit_advance<kScan>(s.cursor, s.dec, c.row, c.cur, s.W);
   wave_barrier<kCl>();  // every advance before any read of the new cursor
   if (on) o_cursor[i] = __ldcg(s.cursor + c.row);
 }

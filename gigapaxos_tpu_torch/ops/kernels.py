@@ -34,17 +34,21 @@ How the XLA idioms map to torch, exactly:
 - ``jax.lax.cond(pre.any(), ...)`` in the reply's resign step: a masked
   scatter with no branch (a branch on a CUDA tensor forces a sync).
 
-The accept transition (HOT LOOP #1) is not written here: it dispatches
-to :mod:`gigapaxos_tpu_torch.ops.accept_cuda`, the hand-written Hopper
-kernel on a CUDA device and its plain torch version on the CPU.  The
-runtime's fused waves (``accept_commit_p``, ``commit_p``,
+The accept transition (HOT LOOP #1) and the commit transition are not
+written here: :func:`accept_batch` dispatches to
+:mod:`gigapaxos_tpu_torch.ops.accept_cuda` and :func:`commit_batch` (the
+decide storm's commits) to :mod:`gigapaxos_tpu_torch.ops.commit_cuda`,
+each a hand-written Hopper kernel on a CUDA device (one cooperative
+launch a call) and its plain torch version on the CPU.  The runtime's
+fused waves (``accept_commit_p``, ``commit_p``,
 ``propose_accept_self_p``, ``accept_reply_commit_self_p`` and
 ``request_reply_p``) dispatch the same way, to the two kernels of
 :mod:`gigapaxos_tpu_torch.ops.wave_cuda` on a CUDA device (one launch a
 call) and to the torch bodies below on the CPU (:func:`acceptor_wave`,
 :func:`coordinator_wave`).  Those bodies are pure torch on any device
-(their accept step is ``accept_reference``), so they are also the
-kernels' yardstick on the card.
+(their accept and commit steps are ``accept_reference`` and
+``commit_reference``), so they are also the kernels' yardstick on the
+card.  Propose and accept-reply stay torch bodies on every device.
 """
 
 from __future__ import annotations
@@ -53,9 +57,9 @@ from typing import NamedTuple
 
 import torch
 
-from gigapaxos_tpu_torch.ops import accept_cuda, wave_cuda
+from gigapaxos_tpu_torch.ops import accept_cuda, commit_cuda, wave_cuda
 from gigapaxos_tpu_torch.ops.types import (ACC_BAL, ACC_RHI, ACC_RLO,
-                                           ACC_SLOT, DEC_SLOT, EMITTED_BIT,
+                                           ACC_SLOT, EMITTED_BIT,
                                            FIELDS, NO_BALLOT, NO_SLOT,
                                            PROP_RHI, PROP_RLO, PROP_SLOT,
                                            PROP_VOTES, VOTE_MASK,
@@ -280,32 +284,9 @@ class CommitOut(NamedTuple):
 
 
 def commit_batch(state: ColumnarState, g, slot, rlo, rhi, valid):
-    W = state.W
-    gi = _gi(g, valid)
-    act = state.active[gi]
-    cursor = state.exec_cursor[gi]
-
-    stale = valid & act & (slot < cursor)
-    in_win = (slot >= cursor) & (slot < cursor + W)
-    store = valid & act & in_win
-    w = torch.where(store, slot % W, 0)
-    _set_cols_(state.dec, gi, w, torch.stack([slot, rlo, rhi], dim=-1),
-               store)
-
-    # contiguity advance over the touched rows only ([B, W] gathers)
-    dslotr = state.dec[gi, :, DEC_SLOT]
-    want = cursor[:, None] + _iota(W, g)[None, :]
-    ok = torch.gather(dslotr, 1, (want % W).long()) == want
-    adv = torch.cumprod(ok.to(i32), dim=1, dtype=i32).sum(dim=1, dtype=i32)
-    _scatter_max_(state.exec_cursor, gi, cursor + adv, store)
-
-    out = CommitOut(
-        applied=store,
-        stale=stale,
-        out_window=valid & act & (slot >= cursor + W),
-        new_cursor=state.exec_cursor[gi],
-    )
-    return state, out
+    """Through the commit kernel (``commit_cuda.commit``)."""
+    out = commit_cuda.commit(state, g, slot, rlo, rhi, valid)
+    return state, CommitOut(out[0] != 0, out[1] != 0, out[2] != 0, out[3])
 
 
 # --------------------------------------------------------------------------
@@ -510,21 +491,19 @@ def accept_reply_commit_self_packed(state: ColumnarState, packed):
     state, ro = accept_reply_batch(state, g, packed[1], packed[2],
                                    packed[3], packed[4] != 0,
                                    packed[5] != 0)
-    state, co = commit_batch(state, g, ro.dec_slot, ro.req_lo,
-                             ro.req_hi, ro.newly_decided)
+    co = commit_cuda.commit_reference(state, g, ro.dec_slot, ro.req_lo,
+                                      ro.req_hi, ro.newly_decided)
     return state, torch.stack([
         _i(ro.newly_decided), _i(ro.preempted), ro.dec_bal, ro.req_lo,
-        ro.req_hi, ro.dec_slot, _i(co.applied), _i(co.stale),
-        co.new_cursor])
+        ro.req_hi, ro.dec_slot, co[0], co[1], co[3]])
 
 
 def commit_packed(state: ColumnarState, packed):
     """packed[5, B]: g, slot, rlo, rhi, valid -> out[4, B]: applied,
-    stale, out_window, new_cursor."""
-    state, o = commit_batch(state, packed[0], packed[1], packed[2],
-                            packed[3], packed[4] != 0)
-    return state, torch.stack([_i(o.applied), _i(o.stale),
-                               _i(o.out_window), o.new_cursor])
+    stale, out_window, new_cursor (the plain version's output: the
+    acceptor wave's yardstick launches no kernel)."""
+    return state, commit_cuda.commit_reference(
+        state, packed[0], packed[1], packed[2], packed[3], packed[4] != 0)
 
 
 # --------------------------------------------------------------------------

@@ -7,8 +7,10 @@ living on one device:
     propose (coordinator) → accept ×R → accept_reply ×R (quorum count)
     → commit ×R (window frontier advance)
 
-Each accept goes through the hand-written accept kernel (one cooperative
-launch).
+On a CUDA device each accept and each commit is one cooperative launch
+of a hand-written Hopper kernel (``accept_cuda``, ``commit_cuda``): 2R
+launches a step.  Propose and accept_reply are still torch bodies, and
+the glue (``full_like``, the ``|`` of ``newly``, the sum) torch ops.
 The replica states are updated in place (the JAX step donates them).
 """
 

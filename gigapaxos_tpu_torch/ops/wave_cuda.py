@@ -33,7 +33,7 @@ barriers for the acceptor wave, 9 and 10 for the coordinator wave with
 both halves.
 :meth:`WaveKernel.floor` launches an empty kernel at a chunk's geometry,
 the launch alone, beside which ``chip_smoke.py`` prints each time.
-``-Xptxas -v`` (sm_90a, CUDA 12.8): the acceptor wave 53 registers in one
+``-Xptxas -v`` (sm_90a, CUDA 12.8): the acceptor wave 48 registers in one
 CTA and in a cluster, the coordinator wave 48 and 74, no spills, no
 static shared memory; the coordinator wave's run-rank tables are
 dynamic shared memory, 96 KB a CTA of 512 threads with both halves.

@@ -85,7 +85,8 @@ def _check_throughput(row):
         [0] * len(info["depth_sweep"])
     assert info["knee_depth"] in [r["depth"] for r in info["depth_sweep"]]
     assert set(info["engine"]["launches"]) == {
-        "cuda:accept", "cuda:acceptor_wave", "cuda:coordinator_wave"}
+        "cuda:accept", "cuda:commit", "cuda:acceptor_wave",
+        "cuda:coordinator_wave"}
 
 
 def _check_scale(row):
@@ -157,7 +158,8 @@ def test_multiproc_throughput_mode(tmp_path):
     assert out["info"]["latency_point"]["throughput_rps"] > 0
     eng = out["info"]["engine"]
     assert len(eng["launches_by_server"]) == 3
-    assert eng["launches"] == {"cuda:accept": 0, "cuda:acceptor_wave": 0,
+    assert eng["launches"] == {"cuda:accept": 0, "cuda:commit": 0,
+                               "cuda:acceptor_wave": 0,
                                "cuda:coordinator_wave": 0}  # plain on CPU
 
 
