@@ -29,7 +29,18 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    (the window wraps) — ``dec``, ``exec_cursor`` and all four output
    rows on every lane bit-identical — with times (L2 warm and cold),
    the plain version's time, the byte bound and the launch floor (an
-   empty kernel launched as it is); the runtime's two wave kernels
+   empty kernel launched as it is); the propose kernel (``propose.cu``,
+   its run rank hand-written, no sort) and ``propose_reference`` on
+   identical clones of a G=2^20, W=16 state with inactive,
+   non-coordinator and phase-1-pending rows and ``next_slot`` up to W
+   past each cursor, at B = 1, 8, 64, 512, 4096, 4099 and 2^18 over
+   several seeds (past 8 also half live and padded), at B = 2^21, on
+   4096 lanes on one row and 2^18 lanes on 64 rows (ranks past the
+   window, a row's list walked across the grid), across the run rank's
+   epoch wrap, on the storm's lanes, with slots near INT32_MAX and on
+   phase 5's slab at every bucket, padded — ``next_slot``, ``prop`` and
+   all five output rows on every lane bit-identical — with the same
+   times, bound and floor; the runtime's two wave kernels
    (``wave.cu``: the acceptor wave, accept then commit; the coordinator
    wave, propose, own accept and own vote, then the replies' votes and
    own commit) against their torch
@@ -53,8 +64,9 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    (chunked), the install of its acked rows and the pause path's row
    snapshots and restores — bit-identical;
 3. the decide storm: ``make_fleet(2**20, 16, R=3)`` and several
-   ``decide_storm_step`` calls at B = 2^18, each step's three commits
-   (the commit kernel) under ``torch.cuda.set_sync_debug_mode("error")``
+   ``decide_storm_step`` calls at B = 2^18, each step's propose (the
+   propose kernel) and three commits (the commit kernel) under
+   ``torch.cuda.set_sync_debug_mode("error")``
    — every step decides every granted lane, the replicas' ``dec`` planes
    agree, and ``exec_cursor`` matches a recount from the lanes;
 4. the SPI engine: three ``ColumnarBackend(2**20, 16)`` run the
@@ -143,11 +155,12 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
 
 The kernels' launch counters, reset just before each of phases 3 to 11
 (each mode of phase 10) and read just after, must show that those paths
-went through their kernels: exact counts of the accept and commit
-kernels and of no wave kernel in the storm (its propose and
-accept_reply stay torch bodies), of the accept kernel (plain accept
-waves), the acceptor wave kernel (commits and fused acceptor waves) and
-no commit kernel in the SPI phase, each wave kernel at least once
+went through their kernels: exact counts of the propose, accept and
+commit kernels and of no wave kernel in the storm (its accept_reply
+stays a torch body), of the propose kernel (plain propose waves), the
+accept kernel (plain accept waves), the acceptor wave kernel (commits
+and fused acceptor waves) and no commit kernel in the SPI phase, each
+wave kernel at least once
 in phases 5, 8 and 11, one of them at least after the kill and in each
 replay, the accept kernel and the acceptor wave kernel in phase 9, and a
 launch in every mode of phase 10; phases 5, 8 and 9 also print each wave
@@ -331,14 +344,16 @@ def info(msg: str) -> None:
     print(msg, flush=True)
 
 
-KERNEL_NAMES = ("accept", "commit", "acceptor_wave", "coordinator_wave")
+KERNEL_NAMES = ("accept", "commit", "propose", "acceptor_wave",
+                "coordinator_wave")
 
 
 def _wrappers():
     from gigapaxos_tpu_torch.ops import wave_cuda
     from gigapaxos_tpu_torch.ops.accept_cuda import accept
     from gigapaxos_tpu_torch.ops.commit_cuda import commit
-    return (accept, commit) + wave_cuda.KERNELS
+    from gigapaxos_tpu_torch.ops.propose_cuda import propose
+    return (accept, commit, propose) + wave_cuda.KERNELS
 
 
 def reset_launches() -> None:
@@ -870,6 +885,255 @@ def phase_commit_parity(name_line):
              f"{hbm / 1e12:.2f} TB/s), floor {r['floor_ms']:.4f} ms (an "
              f"empty kernel launched as it is), {r['stores']} stores, "
              f"bit-exact [{name_line}]")
+    return rows, max_err, checked
+
+
+# -- phase 2: the propose kernel --------------------------------------------
+
+PROPOSE_BS = (1, 8, 64, 512, 4096, 4099, 1 << 18)
+# many lanes on few rows: ranks past the window (throttled lanes) and a
+# row's lanes in many tiles (its list walked across the grid)
+PROPOSE_CROWDS = ((4096, 1), (1 << 18, 64))
+
+
+def propose_state(G, W, gen, active_share=0.9, near_max=False):
+    """``parity_state`` with coordinators (80% of rows, 85% of them with
+    phase 1 complete), random ballots, ``next_slot`` in ``[exec_cursor,
+    exec_cursor + W]`` (as the runtime keeps it: at most one lane writes
+    a column a batch) and a filled proposal plane; with ``near_max`` the
+    cursors lie in [INT32_MAX - 2W, INT32_MAX], where slots wrap."""
+    st = parity_state(G, W, gen, active_share)
+    dev = st.device
+    if near_max:
+        st.exec_cursor = INT32_MAX - torch.randint(
+            0, 2 * W + 1, (G,), generator=gen, device=dev,
+            dtype=torch.int32)
+    st.is_coord = torch.rand(G, generator=gen, device=dev) < 0.8
+    st.coord_active = st.is_coord & (
+        torch.rand(G, generator=gen, device=dev) < 0.85)
+    st.cbal = torch.randint(0, 1 << 20, (G,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    st.next_slot = st.exec_cursor + torch.randint(
+        0, W + 1, (G,), generator=gen, device=dev, dtype=torch.int32)
+    st.prop = torch.randint(-(1 << 31), (1 << 31) - 1, (G, W, 4),
+                            generator=gen, device=dev, dtype=torch.int32)
+    return st
+
+
+def propose_lanes(st, B, gen, rows=None, valid_share=0.9):
+    """B lanes on random rows (or on ``rows``), repeated, random request
+    ids, a share valid."""
+    dev = st.device
+    if rows is None:
+        g = torch.randint(0, st.G, (B,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    else:
+        g = rows[torch.randint(0, rows.numel(), (B,), generator=gen,
+                               device=dev)].to(torch.int32)
+    rlo, rhi = _req_ids(B, gen, dev)
+    return g, rlo, rhi, torch.rand(B, generator=gen, device=dev) < \
+        valid_share
+
+
+def padded_propose_lanes(st, n, B, gen):
+    """n lanes of ``propose_lanes``, every one valid, padded to B as
+    ``ColumnarBackend`` pads a wave: row 0, request id 0, invalid."""
+    g, rlo, rhi, _ = propose_lanes(st, n, gen)
+
+    def pad(t):
+        return torch.cat([t, torch.zeros(B - n, dtype=t.dtype,
+                                          device=t.device)])
+
+    return pad(g), pad(rlo), pad(rhi), torch.arange(B, device=st.device) < n
+
+
+def clone_propose(st):
+    """The state with its two planes the propose writes copied."""
+    return dataclasses.replace(st, next_slot=st.next_slot.clone(),
+                               prop=st.prop.clone())
+
+
+def check_propose(base, lanes, what):
+    """The kernel and ``propose_reference`` on identical clones of
+    ``base``: all five output rows on every lane (padding lanes read row
+    0 in both), ``next_slot`` and ``prop`` must be bit-identical.
+    Returns the max abs error (0), the reference's output and state."""
+    from gigapaxos_tpu_torch.ops.propose_cuda import (propose,
+                                                      propose_reference)
+    st_k, st_r = clone_propose(base), clone_propose(base)
+    out_k = propose(st_k, *lanes)
+    out_r = propose_reference(st_r, *lanes)
+    torch.cuda.synchronize()
+    max_err = 0
+    for name, a, b in (("out", out_k, out_r),
+                       ("next_slot", st_k.next_slot, st_r.next_slot),
+                       ("prop", st_k.prop, st_r.prop)):
+        err = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+        max_err = max(max_err, err)
+        if not torch.equal(a, b):
+            raise AssertionError(f"propose kernel != propose_reference: "
+                                 f"{name} ({what}, max abs err {err})")
+    return max_err, out_r, st_r
+
+
+def propose_bytes(base, lanes, out) -> int:
+    """Bytes the propose must move for these lanes: each lane input read
+    once and each output written once; each touched row's ``active``,
+    ``is_coord``, ``coord_active``, ``next_slot``, ``exec_cursor`` and
+    ``cbal`` read once; each granted lane's ``prop`` column written once
+    (16 B) and each row that granted its ``next_slot`` written once."""
+    g, rlo, rhi, valid = lanes
+    B = g.numel()
+    gi = torch.where(valid, g, 0).long()
+    granted = out[0] != 0
+    return B * (3 * 4 + 1) + B * 5 * 4 + gi.unique().numel() * 15 + \
+        int(granted.sum()) * 16 + gi[granted].unique().numel() * 4
+
+
+def propose_ws_bytes(base, lanes, out) -> int:
+    """The run rank's workspace traffic for these lanes (not in the
+    bound: the function needs none of it): one list entry a (tile, row)
+    of the lanes that can be granted (an 8 B head exchange, read and
+    written, and a 16 B entry), its walk (8 B of head and 16 B an entry
+    of its row's list) and its 4 B sum, and each such lane's 4 B read of
+    the sum."""
+    from gigapaxos_tpu_torch.ops.propose_cuda import THREADS
+    g, rlo, rhi, valid = lanes
+    can = out[0].bool() | out[2].bool()  # granted or throttled
+    lane = torch.arange(g.numel(), device=g.device)
+    rows = g.long()[can]
+    ent = torch.unique((lane[can] // THREADS) * base.G + rows)
+    per_row = torch.bincount(ent % base.G)
+    walk = int((per_row.long() ** 2).sum())
+    return ent.numel() * (16 + 16 + 8 + 4) + walk * 16 + int(can.sum()) * 4
+
+
+def time_propose(base, lanes, out, hbm):
+    """Kernel times with L2 warm (the touched rows just restored) and
+    cold (flushed after the restore), the plain version's time (warm),
+    the launch floor (an empty kernel launched as the kernel is), each
+    on ``base``'s rows restored before every timed call, and the byte
+    bound of the call that gave ``out``."""
+    from gigapaxos_tpu_torch.ops.propose_cuda import (propose,
+                                                      propose_reference)
+    g, _rlo, _rhi, valid = lanes
+    rows = torch.where(valid, g, 0).long().unique()
+    saved_ns, saved_prop = base.next_slot[rows], base.prop[rows]
+    st = clone_propose(base)
+
+    def restore():
+        st.next_slot.index_copy_(0, rows, saved_ns)
+        st.prop.index_copy_(0, rows, saved_prop)
+
+    flush = l2_flusher()
+
+    def cold():
+        restore()
+        flush()
+
+    nbytes = propose_bytes(base, lanes, out)
+    return {"ms": device_ms(lambda: propose(st, *lanes), before=restore),
+            "ms_cold": device_ms(lambda: propose(st, *lanes), before=cold),
+            "plain_ms": device_ms(lambda: propose_reference(st, *lanes),
+                                  before=restore),
+            "floor_ms": device_ms(lambda: propose.floor(g.numel()),
+                                  before=restore),
+            "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3,
+            "ws_bytes": propose_ws_bytes(base, lanes, out),
+            "granted": int((out[0] != 0).sum()),
+            "throttled": int((out[2] != 0).sum())}
+
+
+def phase_propose_parity(name_line):
+    """The propose kernel against ``propose_reference`` on the card, on
+    identical clones of a G=2^20, W=16 state with inactive rows,
+    non-coordinator rows, rows with phase 1 pending and ``next_slot``
+    up to W past each cursor: at ``PROPOSE_BS`` over ``PARITY_SEEDS``
+    (past 8 also half live and padded as the backend pads), at
+    ``BIG_B`` (tiles past the co-resident grid), on ``PROPOSE_CROWDS``,
+    on the storm's lanes (an all-active, all-coordinator state), with
+    slots near INT32_MAX, once across the workspace's epoch wrap, and
+    on the runtime's slab at every bucket with live lanes padded.
+    Times at each width (seed 0), on the crowds, the storm's lanes and
+    the slab's buckets."""
+    from gigapaxos_tpu_torch.ops.propose_cuda import propose
+    hbm = HBM_BYTES_PER_S["pcie" if "PCIe" in name_line else "default"]
+    rows = {}
+    max_err = 0
+    checked = 0
+
+    def held(base, lanes, what, key=None):
+        nonlocal max_err, checked
+        err, out, _after = check_propose(base, lanes, what)
+        max_err = max(max_err, err)
+        checked += 1
+        if key is not None:
+            rows[key] = time_propose(base, lanes, out, hbm)
+
+    for seed in PARITY_SEEDS:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        base = propose_state(G_FULL, W_FULL, gen)
+        first = seed == PARITY_SEEDS[0]
+        for B in PROPOSE_BS:
+            held(base, propose_lanes(base, B, gen), f"seed {seed}, B={B}",
+                 str(B) if first else None)
+            if B > 8:
+                held(base, padded_propose_lanes(base, B // 2, B, gen),
+                     f"seed {seed}, {B // 2} of B={B} padded")
+        if first:
+            held(base, propose_lanes(base, BIG_B, gen),
+                 f"seed {seed}, B={BIG_B}", str(BIG_B))
+            for B, n_rows in PROPOSE_CROWDS:
+                on = torch.nonzero(base.active & base.coord_active)[:, 0]
+                crowd = on[torch.randperm(on.numel(), generator=gen,
+                                          device="cuda")[:n_rows]]
+                held(base, propose_lanes(base, B, gen, rows=crowd),
+                     f"{B} lanes on {n_rows} rows", f"{B}_on_{n_rows}")
+            # the workspace's epoch wraps: every list head is cleared
+            ws = propose.workspace(base.device, base.G)
+            ws.epoch.fill_(-1)
+            held(base, propose_lanes(base, 4099, gen),
+                 f"seed {seed}, the epoch wrapping")
+            if int(ws.epoch) != 1:
+                raise AssertionError(f"propose: epoch {int(ws.epoch)} "
+                                     "after the wrap, not 1")
+        del base
+        base = propose_state(G_FULL, W_FULL, gen, near_max=True)
+        held(base, propose_lanes(base, STORM_B, gen),
+             f"seed {seed}, slots near INT32_MAX, B={STORM_B}")
+        del base
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(PARITY_SEEDS[0])
+    base = propose_state(G_FULL, W_FULL, gen, active_share=1.0)
+    base.is_coord.fill_(True)
+    base.coord_active.fill_(True)
+    base.next_slot.copy_(base.exec_cursor)
+    held(base, propose_lanes(base, STORM_B, gen, valid_share=1.0),
+         "storm lanes", f"storm_{STORM_B}")
+    del base
+    # the runtime's slab at every bucket, live lanes padded as
+    # ColumnarBackend pads them
+    for seed in PARITY_SEEDS:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        base = propose_state(RT_CAPACITY, RT_WINDOW, gen)
+        for B in RT_BUCKETS:
+            n = int(torch.randint(B // 8 + 1, B + 1, (1,), generator=gen,
+                                  device="cuda"))
+            held(base, padded_propose_lanes(base, n, B, gen),
+                 f"rt slab (G={RT_CAPACITY}), seed {seed}, {n} of B={B}",
+                 f"rt_{B}" if seed == PARITY_SEEDS[0] else None)
+        del base
+    torch.cuda.empty_cache()
+    for k, r in rows.items():
+        info(f"propose {k}: kernel {r['ms']:.4f} ms (L2 warm), "
+             f"{r['ms_cold']:.4f} ms (cold), plain {r['plain_ms']:.4f} ms, "
+             f"bound {r['bound_ms']:.6f} ms ({r['bytes']} B at "
+             f"{hbm / 1e12:.2f} TB/s; the run rank's workspace "
+             f"{r['ws_bytes']} B more), floor {r['floor_ms']:.4f} ms (an "
+             f"empty kernel launched as it is), {r['granted']} granted, "
+             f"{r['throttled']} throttled, bit-exact [{name_line}]")
     return rows, max_err, checked
 
 
@@ -1493,6 +1757,8 @@ def phase_cpu_parity():
                                     np.full(k, 2, np.int32),
                                     np.ones(k, bool)) for b in bks]
         _same(prr[0], prr[1], f"spi {it} propose_self_reply")
+        pps = [b.propose(g, reqs ^ np.uint64(11)) for b in bks]
+        _same(pps[0], pps[1], f"spi {it} propose")
     sel = np.arange(0, 64, dtype=np.int32)
     bals = np.full(64, (2 << 12) | 1, np.int32)
     preps = [b.prepare(sel, bals) for b in bks]
@@ -1663,7 +1929,8 @@ def phase_phase1_parity(device="cuda"):
 
 def phase_storm():
     """``STORM_STEPS`` decide-storm steps at full width, each step's
-    commits (three launches of the commit kernel) under
+    propose (one launch of the propose kernel) and commits (three
+    launches of the commit kernel) under
     ``torch.cuda.set_sync_debug_mode("error")``: they must not
     synchronize the host with the card."""
     from gigapaxos_tpu_torch.ops import kernels
@@ -1684,20 +1951,24 @@ def phase_storm():
                             dtype=torch.int32)
         valid = torch.ones(B, dtype=torch.bool, device=dev)
         steps.append((g, rlo, rhi, valid))
-    commit_batch = kernels.commit_batch
+    commit_batch, propose_batch = kernels.commit_batch, kernels.propose_batch
 
-    def commit_no_sync(*args):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return commit_batch(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    def no_sync(fn):
+        def call(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
 
     torch.cuda.synchronize()
     reset_launches()
     decided_total = 0
     wall = 0.0
-    kernels.commit_batch = commit_no_sync  # the storm calls it by name
+    # the storm calls them by name
+    kernels.commit_batch = no_sync(commit_batch)
+    kernels.propose_batch = no_sync(propose_batch)
     try:
         for i, (g, rlo, rhi, valid) in enumerate(steps):
             t0 = time.perf_counter()
@@ -1714,6 +1985,7 @@ def phase_storm():
             decided_total += decided
     finally:
         kernels.commit_batch = commit_batch
+        kernels.propose_batch = propose_batch
     counts = launches()
     for r in range(R):
         if not torch.equal(states[r].exec_cursor.long(), cursor_want):
@@ -1723,10 +1995,12 @@ def phase_storm():
             raise AssertionError(f"storm: replica {r} dec plane differs")
     del states
     torch.cuda.empty_cache()
-    # one accept and one commit launch a replica a step; propose and
-    # accept_reply stay torch bodies, and no wave kernel runs
+    # one propose launch a step, one accept and one commit launch a
+    # replica a step; accept_reply stays a torch body, and no wave kernel
+    # runs
     want = {"accept": STORM_STEPS * R, "commit": STORM_STEPS * R,
-            "acceptor_wave": 0, "coordinator_wave": 0}
+            "propose": STORM_STEPS, "acceptor_wave": 0,
+            "coordinator_wave": 0}
     if counts != want:
         raise AssertionError(f"storm: launches {counts} != {want}")
     return {"decided": decided_total, "wall_s": wall,
@@ -1748,9 +2022,10 @@ def phase_spi():
     rng = np.random.default_rng(1)
     granted_rows = []
     decided_total = granted_total = 0
-    # exact launches: a plain accept wave is one accept launch a chunk;
-    # a commit wave and a fused acceptor wave one acceptor-wave launch a
-    # chunk; propose and accept_reply stay torch bodies
+    # exact launches: a plain propose wave is one propose launch a chunk,
+    # a plain accept wave one accept launch a chunk; a commit wave and a
+    # fused acceptor wave one acceptor-wave launch a chunk; accept_reply
+    # stays a torch body
     want = dict.fromkeys(KERNEL_NAMES, 0)
 
     def replies(g, pr, acks):
@@ -1770,6 +2045,7 @@ def phase_spi():
         g = rng.integers(0, G, B, dtype=np.int32)
         reqs = np.uint64((it + 1) << 40) | rng.integers(
             1, 1 << 31, B, dtype=np.int64).astype(np.uint64)
+        want["propose"] += len(_chunks(B))
         return g, reqs, bks[0].propose(g, reqs)
 
     reset_launches()
@@ -2390,11 +2666,13 @@ def _check_scrapes(node, n_groups, slab_bytes, cuda=True):
         raise AssertionError(f"lanes: node {node.id} /engine/kernels "
                              f"{ks['costs']}")
     # on the card, one ledger row a CUDA library built or loaded in this
-    # process (the commit kernel's only where an earlier phase ran it), the
-    # runtime's two (the accept kernel's and the wave kernels') loaded
+    # process (the commit and propose kernels' only where an earlier phase
+    # ran them), the runtime's two (the accept kernel's and the wave
+    # kernels') loaded
     libs = {k: r for k, r in ks["kernels"].items() if k.startswith("cuda:")}
     ran = ("cuda:accept", "cuda:wave")
-    if cuda and (not set(ran) <= set(libs) <= {*ran, "cuda:commit"} or any(
+    if cuda and (not set(ran) <= set(libs) <=
+                 {*ran, "cuda:commit", "cuda:propose"} or any(
             libs[k]["loads"] < 1 for k in ran)):
         raise AssertionError(f"lanes: node {node.id} /engine/kernels "
                              f"ledger rows {ks['kernels']}")
@@ -3423,6 +3701,17 @@ def main(argv=None) -> int:
              f"padded; B={BIG_B}; {CONTENDED[0]} lanes on {CONTENDED[1]} "
              f"rows; the storm's lanes at B={STORM_B}; cursors near "
              f"INT32_MAX at B={STORM_B}, each seed")
+        ptiming, propose_err, propose_checked = phase_propose_parity(line)
+        info(f"parity: propose kernel bit-identical to propose_reference "
+             f"in {propose_checked} calls: G={G_FULL}, W={W_FULL} with "
+             f"inactive, non-coordinator and phase-1-pending rows, "
+             f"B={list(PROPOSE_BS)} over seeds {list(PARITY_SEEDS)}, each "
+             f"past 8 also half live and padded; B={BIG_B}; "
+             + "; ".join(f"{b} lanes on {n} rows" for b, n in PROPOSE_CROWDS)
+             + f"; the epoch wrapping; the storm's lanes at B={STORM_B}; "
+             f"slots near INT32_MAX at B={STORM_B}, each seed; the "
+             f"runtime's slab (G={RT_CAPACITY}) at every bucket "
+             f"{list(RT_BUCKETS)}, padded")
         wtiming, wave_err, wave_checked = phase_wave_parity(line)
         info(f"parity: the acceptor and coordinator wave kernels "
              f"bit-identical to their torch bodies in {wave_checked} "
@@ -3537,6 +3826,27 @@ def main(argv=None) -> int:
         "floor_ms": big["floor_ms"],
         "library_ms": None,
         "by_lanes": ctiming,
+    })
+    big = ptiming[f"storm_{STORM_B}"]
+    n, by_path = launched("propose")
+    kernels.append({
+        "name": "propose",
+        "route": "cuda",
+        "source": "gigapaxos_tpu_torch/ops/csrc/propose.cu",
+        "replaces": "gigapaxos_tpu/ops/kernels.py:243",
+        "launches": n,
+        "launches_by_path": by_path,
+        "parity": "bit-exact",
+        "max_abs_err": propose_err,
+        "lanes": STORM_B,
+        "ms": big["ms"],
+        "ms_cold_l2": big["ms_cold"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": "bytes",
+        "floor_ms": big["floor_ms"],
+        "library_ms": None,
+        "by_lanes": ptiming,
     })
     for name, replaces in (("acceptor_wave", "gigapaxos_tpu/ops/kernels.py:644"),
                            ("coordinator_wave",

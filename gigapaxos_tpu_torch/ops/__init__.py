@@ -3,9 +3,9 @@
 Port of ``gigapaxos_tpu.ops``: state for ALL groups lives in ``[G]`` /
 ``[G, W, k]`` device tensors and each message type is one batched
 kernel over a struct-of-arrays packet batch (``kernels``), with the
-accept and commit transitions (``accept_cuda``, ``commit_cuda``) and
-the runtime's two fused waves (``wave_cuda``) as hand-written Hopper
-kernels.
+accept, commit and propose transitions (``accept_cuda``,
+``commit_cuda``, ``propose_cuda``) and the runtime's two fused waves
+(``wave_cuda``) as hand-written Hopper kernels.
 """
 
 from gigapaxos_tpu_torch.ops.types import (

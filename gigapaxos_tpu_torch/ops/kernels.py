@@ -34,10 +34,12 @@ How the XLA idioms map to torch, exactly:
 - ``jax.lax.cond(pre.any(), ...)`` in the reply's resign step: a masked
   scatter with no branch (a branch on a CUDA tensor forces a sync).
 
-The accept transition (HOT LOOP #1) and the commit transition are not
-written here: :func:`accept_batch` dispatches to
-:mod:`gigapaxos_tpu_torch.ops.accept_cuda` and :func:`commit_batch` (the
-decide storm's commits) to :mod:`gigapaxos_tpu_torch.ops.commit_cuda`,
+The accept, commit and propose transitions are not written here:
+:func:`accept_batch` dispatches to
+:mod:`gigapaxos_tpu_torch.ops.accept_cuda`, :func:`commit_batch` (the
+decide storm's commits) to :mod:`gigapaxos_tpu_torch.ops.commit_cuda`
+and :func:`propose_batch` and :func:`propose_packed` (the storm's and
+the SPI's plain proposes) to :mod:`gigapaxos_tpu_torch.ops.propose_cuda`,
 each a hand-written Hopper kernel on a CUDA device (one cooperative
 launch a call) and its plain torch version on the CPU.  The runtime's
 fused waves (``accept_commit_p``, ``commit_p``,
@@ -46,9 +48,10 @@ fused waves (``accept_commit_p``, ``commit_p``,
 :mod:`gigapaxos_tpu_torch.ops.wave_cuda` on a CUDA device (one launch a
 call) and to the torch bodies below on the CPU (:func:`acceptor_wave`,
 :func:`coordinator_wave`).  Those bodies are pure torch on any device
-(their accept and commit steps are ``accept_reference`` and
-``commit_reference``), so they are also the kernels' yardstick on the
-card.  Propose and accept-reply stay torch bodies on every device.
+(their propose, accept and commit steps are ``propose_reference``,
+``accept_reference`` and ``commit_reference``), so they are also the
+kernels' yardstick on the card.  Accept-reply stays a torch body on
+every device.
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ from typing import NamedTuple
 
 import torch
 
-from gigapaxos_tpu_torch.ops import accept_cuda, commit_cuda, wave_cuda
+from gigapaxos_tpu_torch.ops import (accept_cuda, commit_cuda, propose_cuda,
+                                     wave_cuda)
 from gigapaxos_tpu_torch.ops.types import (ACC_BAL, ACC_RHI, ACC_RLO,
                                            ACC_SLOT, EMITTED_BIT,
                                            FIELDS, NO_BALLOT, NO_SLOT,
@@ -124,22 +128,8 @@ def _popcount(x):
     return (x + (x >> 8) + (x >> 16) + (x >> 24)) & 0x3F
 
 
-def _run_rank(key1, key2):
-    """Rank of each lane within its equal-(key1, key2) run, in original
-    lane order (``kernels.py:_run_rank``: stable lexsort, key1 primary,
-    then a run-start cummax)."""
-    B = key1.shape[0]
-    o2 = torch.sort(key2, stable=True).indices
-    o1 = torch.sort(key1[o2], stable=True).indices
-    order = o2[o1]
-    k1, k2 = key1[order], key2[order]
-    iota = _iota(B, key1)
-    start = torch.ones(B, dtype=torch.bool, device=key1.device)
-    start[1:] = (k1[1:] != k1[:-1]) | (k2[1:] != k2[:-1])
-    run_start = torch.cummax(torch.where(start, iota, 0), 0).values
-    rank = torch.empty_like(iota)
-    rank[order] = iota - run_start
-    return rank
+# the run rank's plain version (the accept-reply body's dedupe uses it)
+_run_rank = propose_cuda.run_rank
 
 
 # --------------------------------------------------------------------------
@@ -239,36 +229,10 @@ class ProposeOut(NamedTuple):
 
 
 def propose_batch(state: ColumnarState, g, rlo, rhi, valid):
-    """Assign contiguous slots to new requests, several per group per
-    batch: lane i gets ``next_slot[g] + rank_i`` (its occurrence index
-    among same-group lanes)."""
-    W = state.W
-    gi = _gi(g, valid)
-    act = state.active[gi]
-    coord = state.is_coord[gi] & state.coord_active[gi]
-    can = valid & act & coord
-
-    iota = _iota(g.shape[0], g)
-    rank = _run_rank(torch.where(can, g, -1), torch.where(can, 0, iota))
-
-    slot = state.next_slot[gi] + rank
-    in_win = slot < state.exec_cursor[gi] + W
-    granted = can & in_win
-    cbal = state.cbal[gi]
-
-    _scatter_add_(state.next_slot, gi, torch.ones_like(slot), granted)
-    w = torch.where(granted, slot % W, 0)
-    _set_cols_(state.prop, gi, w, torch.stack(
-        [slot, rlo, rhi, torch.zeros_like(slot)], dim=-1), granted)
-
-    out = ProposeOut(
-        granted=granted,
-        rejected=valid & act & ~coord,
-        throttled=can & ~in_win,
-        slot=slot,
-        cbal=cbal,
-    )
-    return state, out
+    """Through the propose kernel (``propose_cuda.propose``)."""
+    out = propose_cuda.propose(state, g, rlo, rhi, valid)
+    return state, ProposeOut(out[0] != 0, out[1] != 0, out[2] != 0, out[3],
+                             out[4])
 
 
 # --------------------------------------------------------------------------
@@ -437,11 +401,9 @@ def _i(b):
 
 def propose_packed(state: ColumnarState, packed):
     """packed[4, B]: g, rlo, rhi, valid -> out[5, B]: granted, rejected,
-    throttled, slot, cbal."""
-    state, o = propose_batch(state, packed[0], packed[1], packed[2],
-                             packed[3] != 0)
-    return state, torch.stack([_i(o.granted), _i(o.rejected),
-                               _i(o.throttled), o.slot, o.cbal])
+    throttled, slot, cbal (the propose kernel's own output)."""
+    return state, propose_cuda.propose(state, packed[0], packed[1],
+                                       packed[2], packed[3] != 0)
 
 
 def accept_packed(state: ColumnarState, packed):
@@ -469,7 +431,8 @@ def propose_accept_self_packed(state: ColumnarState, packed):
     accept + its own vote, in that order."""
     g, rlo, rhi, smidx = packed[0], packed[1], packed[2], packed[3]
     valid = packed[4] != 0
-    state, po = propose_batch(state, g, rlo, rhi, valid)
+    po = propose_cuda.propose_reference(state, g, rlo, rhi, valid)
+    po = ProposeOut(po[0] != 0, po[1] != 0, po[2] != 0, po[3], po[4])
     gr = valid & po.granted
     ao = accept_cuda.accept_reference(state, g, po.slot, po.cbal, rlo, rhi,
                                       gr)

@@ -117,11 +117,12 @@ def cache_metrics() -> dict:
 
 def kernel_launches() -> Dict[str, int]:
     """This process's launches of each hand-written kernel, by library
-    and kernel (``cuda:accept``, ``cuda:commit``, ``cuda:acceptor_wave``,
-    ``cuda:coordinator_wave``); 0 off the card, where the wrappers run
-    their plain versions."""
-    from gigapaxos_tpu_torch.ops import accept_cuda, commit_cuda, wave_cuda
+    and kernel (``cuda:accept``, ``cuda:commit``, ``cuda:propose``,
+    ``cuda:acceptor_wave``, ``cuda:coordinator_wave``); 0 off the card,
+    where the wrappers run their plain versions."""
+    from gigapaxos_tpu_torch.ops import (accept_cuda, commit_cuda,
+                                         propose_cuda, wave_cuda)
     return {f"cuda:{k.name}": k.launches
-            for k in (accept_cuda.accept, commit_cuda.commit)
-            + wave_cuda.KERNELS}
+            for k in (accept_cuda.accept, commit_cuda.commit,
+                      propose_cuda.propose) + wave_cuda.KERNELS}
 
