@@ -40,7 +40,22 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    epoch wrap, on the storm's lanes, with slots near INT32_MAX and on
    phase 5's slab at every bucket, padded — ``next_slot``, ``prop`` and
    all five output rows on every lane bit-identical — with the same
-   times, bound and floor; the runtime's two wave kernels
+   times, bound and floor; the accept-reply kernel (``accept_reply.cu``,
+   one grid barrier, the propose's run rank by (row, slot)) and
+   ``accept_reply_reference`` on identical clones of a G=2^20, W=16
+   coordinator state with rows not coordinators or with phase 1
+   pending, columns holding other slots or already emitted, partial
+   vote bitmaps and members 1, 3 and 5, at B = 1, 8, 64, 512, 4096, 4099
+   and 2^18 over several seeds (past 8 also half live, padded and
+   packed), at B = 2^21, on 4096 lanes on 64 rows (acks beside
+   preempting nacks of their rows), on keys whose three lanes lie in
+   three tiles (the first not matching, quorum crossed by the third),
+   across the shared workspace's epoch wrap in a propose between two
+   accept-replies, on the storm's lanes, with slots near INT32_MAX and
+   on phase 5's slab at every bucket, padded and packed — ``prop``,
+   ``is_coord``, ``coord_active`` and all six output rows on every lane
+   bit-identical — with the same times, bound and floor; the runtime's
+   two wave kernels
    (``wave.cu``: the acceptor wave, accept then commit; the coordinator
    wave, propose, own accept and own vote, then the replies' votes and
    own commit) against their torch
@@ -65,7 +80,8 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
    snapshots and restores — bit-identical;
 3. the decide storm: ``make_fleet(2**20, 16, R=3)`` and several
    ``decide_storm_step`` calls at B = 2^18, each step's propose (the
-   propose kernel) and three commits (the commit kernel) under
+   propose kernel), three accept-replies (the accept-reply kernel) and
+   three commits (the commit kernel) under
    ``torch.cuda.set_sync_debug_mode("error")``
    — every step decides every granted lane, the replicas' ``dec`` planes
    agree, and ``exec_cursor`` matches a recount from the lanes;
@@ -155,12 +171,14 @@ port's main path at the scale users run it — 1,048,576 groups, window 16,
 
 The kernels' launch counters, reset just before each of phases 3 to 11
 (each mode of phase 10) and read just after, must show that those paths
-went through their kernels: exact counts of the propose, accept and
-commit kernels and of no wave kernel in the storm (its accept_reply
-stays a torch body), of the propose kernel (plain propose waves), the
-accept kernel (plain accept waves), the acceptor wave kernel (commits
-and fused acceptor waves) and no commit kernel in the SPI phase, each
-wave kernel at least once
+went through their kernels: exact counts of the propose, accept,
+accept-reply and commit kernels and of no wave kernel in the storm, of
+the propose kernel (plain propose waves), the accept kernel (plain
+accept waves), the accept-reply kernel (plain accept_reply waves), the
+acceptor wave kernel (commits and fused acceptor waves) and no commit
+kernel in the SPI phase, no accept-reply launch in phases 5 to 11 (the
+runtime's replies ride the coordinator wave), each wave kernel at
+least once
 in phases 5, 8 and 11, one of them at least after the kill and in each
 replay, the accept kernel and the acceptor wave kernel in phase 9, and a
 launch in every mode of phase 10; phases 5, 8 and 9 also print each wave
@@ -344,16 +362,17 @@ def info(msg: str) -> None:
     print(msg, flush=True)
 
 
-KERNEL_NAMES = ("accept", "commit", "propose", "acceptor_wave",
-                "coordinator_wave")
+KERNEL_NAMES = ("accept", "commit", "propose", "accept_reply",
+                "acceptor_wave", "coordinator_wave")
 
 
 def _wrappers():
     from gigapaxos_tpu_torch.ops import wave_cuda
     from gigapaxos_tpu_torch.ops.accept_cuda import accept
+    from gigapaxos_tpu_torch.ops.accept_reply_cuda import accept_reply
     from gigapaxos_tpu_torch.ops.commit_cuda import commit
     from gigapaxos_tpu_torch.ops.propose_cuda import propose
-    return (accept, commit, propose) + wave_cuda.KERNELS
+    return (accept, commit, propose, accept_reply) + wave_cuda.KERNELS
 
 
 def reset_launches() -> None:
@@ -1056,7 +1075,7 @@ def phase_propose_parity(name_line):
     on the runtime's slab at every bucket with live lanes padded.
     Times at each width (seed 0), on the crowds, the storm's lanes and
     the slab's buckets."""
-    from gigapaxos_tpu_torch.ops.propose_cuda import propose
+    from gigapaxos_tpu_torch.ops import rank_cuda
     hbm = HBM_BYTES_PER_S["pcie" if "PCIe" in name_line else "default"]
     rows = {}
     max_err = 0
@@ -1091,7 +1110,7 @@ def phase_propose_parity(name_line):
                 held(base, propose_lanes(base, B, gen, rows=crowd),
                      f"{B} lanes on {n_rows} rows", f"{B}_on_{n_rows}")
             # the workspace's epoch wraps: every list head is cleared
-            ws = propose.workspace(base.device, base.G)
+            ws = rank_cuda.workspace(base.device, base.G)
             ws.epoch.fill_(-1)
             held(base, propose_lanes(base, 4099, gen),
                  f"seed {seed}, the epoch wrapping")
@@ -1134,6 +1153,358 @@ def phase_propose_parity(name_line):
              f"{r['ws_bytes']} B more), floor {r['floor_ms']:.4f} ms (an "
              f"empty kernel launched as it is), {r['granted']} granted, "
              f"{r['throttled']} throttled, bit-exact [{name_line}]")
+    return rows, max_err, checked
+
+
+# -- phase 2: the accept-reply kernel ---------------------------------------
+
+REPLY_BS = (1, 8, 64, 512, 4096, 4099, 1 << 18)
+REPLY_SENDERS = 5  # sender member indexes 0..4 (members 1, 3 and 5)
+# many lanes on few rows: each row's acks beside its preempting nacks
+REPLY_CROWD = (4096, 64)
+# keys whose lanes lie in three tiles: keys, lanes
+REPLY_SPLIT = (256, 4096)
+
+
+def _wrap32(x):
+    """int64 values as int32 wraps them."""
+    return ((x + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+
+
+def reply_state(G, W, gen, near_max=False):
+    """``propose_state`` (rows not coordinators, or with phase 1
+    pending) with members 1, 3 and 5 and each ``prop`` column holding
+    the slot of its window position (10% the one a window earlier, 5%
+    none), a partial vote bitmap of senders 0..4, 15% of the columns
+    already emitted; with ``near_max`` the cursors lie in
+    [INT32_MAX - 2W, INT32_MAX], where slots wrap negative."""
+    from gigapaxos_tpu_torch.ops.types import EMITTED_BIT, NO_SLOT
+    st = propose_state(G, W, gen, near_max=near_max)
+    dev = st.device
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def ri(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev)
+
+    st.members = torch.tensor([1, 3, 5], dtype=torch.int32,
+                              device=dev)[ri(3, G)]
+    cur = st.exec_cursor.long()[:, None]
+    slot = cur + (torch.arange(W, device=dev)[None, :] - cur) % W
+    kind = rand(G, W)
+    slot = _wrap32(torch.where(kind < 0.1, slot - W, slot))
+    st.prop[..., 0] = torch.where(kind > 0.95, NO_SLOT, slot)
+    votes = (ri(1 << REPLY_SENDERS, G, W) &
+             ri(1 << REPLY_SENDERS, G, W)).to(torch.int32)
+    st.prop[..., 3] = torch.where(rand(G, W) < 0.15, votes | EMITTED_BIT,
+                                  votes)
+    return st
+
+
+def reply_lanes(st, B, gen, rows=None, valid_share=0.9):
+    """B lanes with distinct (row, slot, sender) (the kernel's
+    precondition), on random rows (or on ``rows``): a column's own slot
+    (which may match), the slot a window later or earlier (which does
+    not), ballots at, below and above ``cbal``, 15% nacks (those above
+    ``cbal`` preempt), a share valid."""
+    dev = st.device
+    W = st.W
+    per = W * 3 * REPLY_SENDERS
+    n_rows = st.G if rows is None else rows.numel()
+    keys = torch.randint(0, n_rows * per, (2 * B + 64,), generator=gen,
+                         device=dev, dtype=torch.int64).unique()
+    keys = keys[torch.randperm(keys.numel(), generator=gen,
+                               device=dev)[:B]]
+    assert keys.numel() == B
+    r = keys // per if rows is None else rows.long()[keys // per]
+    c = keys // (3 * REPLY_SENDERS) % W
+    shift = torch.tensor([0, W, -W], device=dev)[keys // REPLY_SENDERS % 3]
+    slot = _wrap32(st.prop[r, c, 0].long() + shift)
+    step = torch.tensor([0, 0, 0, 0, -1, 1, 3], device=dev)[torch.randint(
+        0, 7, (B,), generator=gen, device=dev)]
+    bal = _wrap32(st.cbal[r].long() + step)
+    sender = (keys % REPLY_SENDERS).to(torch.int32)
+    acked = torch.rand(B, generator=gen, device=dev) < 0.85
+    valid = torch.rand(B, generator=gen, device=dev) < valid_share
+    return r.to(torch.int32), slot, bal, sender, acked, valid
+
+
+def padded_reply_lanes(st, n, B, gen):
+    """n lanes of ``reply_lanes``, every one valid, padded to B and
+    packed as ``ColumnarBackend`` pads and packs a wave: row 0,
+    ``NO_SLOT``, ``NO_BALLOT``, sender 0, nack, invalid; the flags as
+    int32 rows of the packed batch."""
+    from gigapaxos_tpu_torch.ops.types import NO_BALLOT, NO_SLOT
+    lanes = reply_lanes(st, n, gen, valid_share=1.0)
+    fills = (0, NO_SLOT, NO_BALLOT, 0, 0, 0)
+    return tuple(torch.cat([t.to(torch.int32), torch.full(
+        (B - n,), f, dtype=torch.int32, device=st.device)])
+        for t, f in zip(lanes, fills))
+
+
+def storm_reply_state_lanes(G, W, B, gen):
+    """The storm's second reply on an all-active, all-coordinator state
+    of members 3: B distinct rows, each lane on a column that holds its
+    slot with sender 0's vote, from sender 1 at ``cbal``, acked, valid:
+    every lane crosses quorum and is newly decided."""
+    st = reply_state(G, W, gen)
+    dev = st.device
+    st.active.fill_(True)
+    st.is_coord.fill_(True)
+    st.coord_active.fill_(True)
+    st.members.fill_(3)
+    r = torch.randperm(G, generator=gen, device=dev)[:B]
+    c = torch.randint(0, W, (B,), generator=gen, device=dev)
+    cur = st.exec_cursor.long()[r]
+    slot = (cur + (c - cur) % W).to(torch.int32)
+    st.prop[r, c, 0] = slot
+    st.prop[r, c, 3] = 1
+    one = torch.ones(B, dtype=torch.bool, device=dev)
+    return st, (r.to(torch.int32), slot, st.cbal[r],
+                torch.ones(B, dtype=torch.int32, device=dev), one, one)
+
+
+def split_reply_lanes(st, gen):
+    """``REPLY_SPLIT``: keys (row, slot) whose three lanes lie in three
+    tiles, in order — the first a non-matching lane (a ballot below
+    ``cbal``), the second and third matching — on a column with sender
+    0's vote and members 5 (quorum 3: only the third lane's vote crosses
+    it); the other lanes random on other rows.  The kernel must decide
+    each key at its second lane.  Returns the lanes and the keys' lane
+    indices ``[keys, 3]``."""
+    from gigapaxos_tpu_torch.ops.propose_cuda import THREADS
+    K, B = REPLY_SPLIT
+    dev = st.device
+    perm = torch.randperm(st.G, generator=gen, device=dev)
+    rows, others = perm[:K], perm[K:K + 4 * B]
+    st.members[rows] = 5
+    st.is_coord[rows] = True
+    st.coord_active[rows] = True
+    c = torch.randint(0, st.W, (K,), generator=gen, device=dev)
+    cur = st.exec_cursor.long()[rows]
+    slot = (cur + (c - cur) % st.W).to(torch.int32)
+    st.prop[rows, c, 0] = slot
+    st.prop[rows, c, 3] = 1
+    tiles = B // THREADS
+    pick = torch.rand((K, tiles), generator=gen, device=dev).argsort(
+        dim=1)[:, :3].sort(dim=1).values
+    at = pick * THREADS + torch.arange(K, device=dev)[:, None]
+    lanes = [t.clone() for t in reply_lanes(st, B, gen, rows=others)]
+    cb = st.cbal[rows]
+    for j in range(3):
+        vals = (rows.to(torch.int32), slot, cb - int(j == 0),
+                torch.full((K,), 1 + j, dtype=torch.int32, device=dev),
+                True, True)
+        for f in range(6):
+            lanes[f][at[:, j]] = vals[f]
+    return tuple(lanes), at
+
+
+def clone_reply(st):
+    """The state with the three planes the accept-reply writes copied."""
+    return dataclasses.replace(st, prop=st.prop.clone(),
+                               is_coord=st.is_coord.clone(),
+                               coord_active=st.coord_active.clone())
+
+
+def check_reply(base, lanes, what):
+    """The kernel and ``accept_reply_reference`` on identical clones of
+    ``base``: all six output rows on every lane (padding lanes read row
+    0 in both), ``prop``, ``is_coord`` and ``coord_active`` must be
+    bit-identical.  Int32 flag lanes (a packed batch) go to the kernel
+    as they are.  Returns the max abs error (0), the reference's output
+    and state."""
+    from gigapaxos_tpu_torch.ops.accept_reply_cuda import (
+        accept_reply, accept_reply_reference)
+    st_k, st_r = clone_reply(base), clone_reply(base)
+    out_k = accept_reply(st_k, *lanes)
+    out_r = accept_reply_reference(st_r, *lanes[:4], lanes[4] != 0,
+                                   lanes[5] != 0)
+    torch.cuda.synchronize()
+    max_err = 0
+    for name, a, b in (("out", out_k, out_r), ("prop", st_k.prop, st_r.prop),
+                       ("is_coord", st_k.is_coord, st_r.is_coord),
+                       ("coord_active", st_k.coord_active,
+                        st_r.coord_active)):
+        err = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+        max_err = max(max_err, err)
+        if not torch.equal(a, b):
+            raise AssertionError(f"accept-reply kernel != "
+                                 f"accept_reply_reference: {name} ({what}, "
+                                 f"max abs err {err})")
+    return max_err, out_r, st_r
+
+
+def reply_bytes(base, lanes, out, after) -> int:
+    """Bytes the accept-reply must move for these lanes: each lane input
+    read once and each output written once; each touched row's
+    ``is_coord``, ``coord_active``, ``cbal`` and ``members`` read once;
+    each touched ``prop`` column read once (16 B); each vote word the
+    batch changed written once (4 B); each resigned row's two flags
+    written once."""
+    g, slot, bal, sender, acked, valid = lanes
+    B = g.numel()
+    v = valid != 0
+    gi = torch.where(v, g, 0).long()
+    w = torch.where(v, slot % base.W, 0).long()
+    rows = gi.unique()
+    cols = (gi * base.W + w).unique()
+    before = base.prop.view(-1, 4)[cols, 3]
+    changed = int((after.prop.view(-1, 4)[cols, 3] != before).sum())
+    resigned = int((after.is_coord[rows] != base.is_coord[rows]).sum() +
+                   (after.coord_active[rows] !=
+                    base.coord_active[rows]).sum())
+    return B * (4 * 4 + 2 * acked.element_size()) + B * 6 * 4 + \
+        rows.numel() * 10 + cols.numel() * 16 + changed * 4 + resigned
+
+
+def time_reply(base, lanes, out, after, hbm):
+    """Kernel times with L2 warm (the touched rows just restored) and
+    cold (flushed after the restore), the plain version's time (warm),
+    the launch floor, each on ``base``'s rows restored before every
+    timed call, and the byte bound of the call that gave ``out`` and
+    ``after``."""
+    from gigapaxos_tpu_torch.ops.accept_reply_cuda import (
+        accept_reply, accept_reply_reference)
+    g, slot, bal, sender, acked, valid = lanes
+    rows = torch.where(valid != 0, g, 0).long().unique()
+    saved = [(f, getattr(base, f)[rows])
+             for f in ("prop", "is_coord", "coord_active")]
+    st = clone_reply(base)
+
+    def restore():
+        for f, t in saved:
+            getattr(st, f).index_copy_(0, rows, t)
+
+    flush = l2_flusher()
+
+    def cold():
+        restore()
+        flush()
+
+    ab, vb = acked != 0, valid != 0
+    nbytes = reply_bytes(base, lanes, out, after)
+    return {"ms": device_ms(lambda: accept_reply(st, *lanes),
+                            before=restore),
+            "ms_cold": device_ms(lambda: accept_reply(st, *lanes),
+                                 before=cold),
+            "plain_ms": device_ms(lambda: accept_reply_reference(
+                st, g, slot, bal, sender, ab, vb), before=restore),
+            "floor_ms": device_ms(lambda: accept_reply.floor(g.numel()),
+                                  before=restore),
+            "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3,
+            "newly": int((out[0] != 0).sum()),
+            "preempted": int((out[1] != 0).sum())}
+
+
+def phase_reply_parity(name_line):
+    """The accept-reply kernel against ``accept_reply_reference`` on the
+    card, on identical clones of a G=2^20, W=16 coordinator state
+    (``reply_state``): at ``REPLY_BS`` over ``PARITY_SEEDS`` (past 8 also
+    half live, padded and packed as the backend pads), at ``BIG_B``
+    (tiles past the co-resident grid), on ``REPLY_CROWD`` (acks beside
+    preempting nacks of their rows), on ``REPLY_SPLIT``'s keys across
+    tiles, on the storm's lanes, with slots near INT32_MAX, across the
+    shared workspace's epoch wrap with a propose between two
+    accept-replies, and on the runtime's slab at every bucket, padded
+    and packed.  Times at each width (seed 0), on the crowd, the split
+    keys, the storm's lanes and the slab's buckets."""
+    from gigapaxos_tpu_torch.ops import rank_cuda
+    hbm = HBM_BYTES_PER_S["pcie" if "PCIe" in name_line else "default"]
+    rows = {}
+    max_err = 0
+    checked = 0
+
+    def held(base, lanes, what, key=None):
+        nonlocal max_err, checked
+        err, out, after = check_reply(base, lanes, what)
+        max_err = max(max_err, err)
+        checked += 1
+        if key is not None:
+            rows[key] = time_reply(base, lanes, out, after, hbm)
+        return out
+
+    for seed in PARITY_SEEDS:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        base = reply_state(G_FULL, W_FULL, gen)
+        first = seed == PARITY_SEEDS[0]
+        for B in REPLY_BS:
+            held(base, reply_lanes(base, B, gen), f"seed {seed}, B={B}",
+                 str(B) if first else None)
+            if B > 8:
+                held(base, padded_reply_lanes(base, B // 2, B, gen),
+                     f"seed {seed}, {B // 2} of B={B} padded, packed")
+        if first:
+            held(base, reply_lanes(base, BIG_B, gen),
+                 f"seed {seed}, B={BIG_B}", str(BIG_B))
+            B, n_rows = REPLY_CROWD
+            on = torch.nonzero(base.is_coord & base.coord_active)[:, 0]
+            crowd = on[torch.randperm(on.numel(), generator=gen,
+                                      device="cuda")[:n_rows]]
+            out = held(base, reply_lanes(base, B, gen, rows=crowd),
+                       f"{B} lanes on {n_rows} rows",
+                       f"{B}_on_{n_rows}")
+            if not (out[0].any() and out[1].any()):
+                raise AssertionError("accept-reply crowd: no lane decided "
+                                     "or none preempted")
+            lanes, at = split_reply_lanes(base, gen)
+            out = held(base, lanes, f"{REPLY_SPLIT[0]} keys across tiles",
+                       "split")
+            if not (bool(out[0][at[:, 1]].all()) and
+                    not out[0][at[:, 0]].any() and
+                    not out[0][at[:, 2]].any()):
+                raise AssertionError("accept-reply split keys: not "
+                                     "decided at each key's second lane")
+            # the shared workspace's epoch wraps inside a propose between
+            # two accept-replies on the same stream
+            ws = rank_cuda.workspace(base.device, base.G)
+            ws.epoch.fill_(-2)
+            held(base, reply_lanes(base, 4099, gen),
+                 f"seed {seed}, before the epoch wrap")
+            check_propose(base, propose_lanes(base, 4099, gen),
+                          f"seed {seed}, the epoch wrapping")
+            held(base, reply_lanes(base, 4099, gen),
+                 f"seed {seed}, after the epoch wrap")
+            if int(ws.epoch) != 2:
+                raise AssertionError(f"accept-reply: epoch {int(ws.epoch)} "
+                                     "after the wrap, not 2")
+        del base
+        base = reply_state(G_FULL, W_FULL, gen, near_max=True)
+        held(base, reply_lanes(base, STORM_B, gen),
+             f"seed {seed}, slots near INT32_MAX, B={STORM_B}")
+        del base
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(PARITY_SEEDS[0])
+    base, lanes = storm_reply_state_lanes(G_FULL, W_FULL, STORM_B, gen)
+    out = held(base, lanes, "storm lanes", f"storm_{STORM_B}")
+    if not bool(out[0].all()):
+        raise AssertionError("accept-reply storm lanes: not every lane "
+                             "newly decided")
+    del base, lanes
+    # the runtime's slab at every bucket, live lanes padded and packed as
+    # ColumnarBackend pads and packs them
+    for seed in PARITY_SEEDS:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        base = reply_state(RT_CAPACITY, RT_WINDOW, gen)
+        for B in RT_BUCKETS:
+            n = int(torch.randint(B // 8 + 1, B + 1, (1,), generator=gen,
+                                  device="cuda"))
+            held(base, padded_reply_lanes(base, n, B, gen),
+                 f"rt slab (G={RT_CAPACITY}), seed {seed}, {n} of B={B}",
+                 f"rt_{B}" if seed == PARITY_SEEDS[0] else None)
+        del base
+    torch.cuda.empty_cache()
+    for k, r in rows.items():
+        info(f"accept_reply {k}: kernel {r['ms']:.4f} ms (L2 warm), "
+             f"{r['ms_cold']:.4f} ms (cold), plain {r['plain_ms']:.4f} ms, "
+             f"bound {r['bound_ms']:.6f} ms ({r['bytes']} B at "
+             f"{hbm / 1e12:.2f} TB/s), floor {r['floor_ms']:.4f} ms (an "
+             f"empty kernel launched as it is), {r['newly']} newly "
+             f"decided, {r['preempted']} preempted, bit-exact "
+             f"[{name_line}]")
     return rows, max_err, checked
 
 
@@ -1929,9 +2300,9 @@ def phase_phase1_parity(device="cuda"):
 
 def phase_storm():
     """``STORM_STEPS`` decide-storm steps at full width, each step's
-    propose (one launch of the propose kernel) and commits (three
-    launches of the commit kernel) under
-    ``torch.cuda.set_sync_debug_mode("error")``: they must not
+    propose (one launch of the propose kernel), accept-replies and
+    commits (three launches each of the accept-reply and commit kernels)
+    under ``torch.cuda.set_sync_debug_mode("error")``: they must not
     synchronize the host with the card."""
     from gigapaxos_tpu_torch.ops import kernels
     from gigapaxos_tpu_torch.ops.storm import decide_storm_step, make_fleet
@@ -1952,6 +2323,7 @@ def phase_storm():
         valid = torch.ones(B, dtype=torch.bool, device=dev)
         steps.append((g, rlo, rhi, valid))
     commit_batch, propose_batch = kernels.commit_batch, kernels.propose_batch
+    accept_reply_batch = kernels.accept_reply_batch
 
     def no_sync(fn):
         def call(*args):
@@ -1969,6 +2341,7 @@ def phase_storm():
     # the storm calls them by name
     kernels.commit_batch = no_sync(commit_batch)
     kernels.propose_batch = no_sync(propose_batch)
+    kernels.accept_reply_batch = no_sync(accept_reply_batch)
     try:
         for i, (g, rlo, rhi, valid) in enumerate(steps):
             t0 = time.perf_counter()
@@ -1986,6 +2359,7 @@ def phase_storm():
     finally:
         kernels.commit_batch = commit_batch
         kernels.propose_batch = propose_batch
+        kernels.accept_reply_batch = accept_reply_batch
     counts = launches()
     for r in range(R):
         if not torch.equal(states[r].exec_cursor.long(), cursor_want):
@@ -1995,12 +2369,11 @@ def phase_storm():
             raise AssertionError(f"storm: replica {r} dec plane differs")
     del states
     torch.cuda.empty_cache()
-    # one propose launch a step, one accept and one commit launch a
-    # replica a step; accept_reply stays a torch body, and no wave kernel
-    # runs
+    # one propose launch a step, one accept, one accept-reply and one
+    # commit launch a replica a step, and no wave kernel runs
     want = {"accept": STORM_STEPS * R, "commit": STORM_STEPS * R,
-            "propose": STORM_STEPS, "acceptor_wave": 0,
-            "coordinator_wave": 0}
+            "propose": STORM_STEPS, "accept_reply": STORM_STEPS * R,
+            "acceptor_wave": 0, "coordinator_wave": 0}
     if counts != want:
         raise AssertionError(f"storm: launches {counts} != {want}")
     return {"decided": decided_total, "wall_s": wall,
@@ -2023,9 +2396,9 @@ def phase_spi():
     granted_rows = []
     decided_total = granted_total = 0
     # exact launches: a plain propose wave is one propose launch a chunk,
-    # a plain accept wave one accept launch a chunk; a commit wave and a
-    # fused acceptor wave one acceptor-wave launch a chunk; accept_reply
-    # stays a torch body
+    # a plain accept wave one accept launch a chunk, a plain accept_reply
+    # wave one accept-reply launch a chunk; a commit wave and a fused
+    # acceptor wave one acceptor-wave launch a chunk
     want = dict.fromkeys(KERNEL_NAMES, 0)
 
     def replies(g, pr, acks):
@@ -2033,6 +2406,7 @@ def phase_spi():
         for s in range(3):
             rr = bks[0].accept_reply(g, pr.slot, pr.cbal,
                                      np.full(len(g), s, np.int32), acks[s])
+            want["accept_reply"] += len(_chunks(len(g)))
             newly += rr.newly_decided
         if newly.max(initial=0) > 1:
             raise AssertionError("spi: a lane was decided twice")
@@ -2666,13 +3040,14 @@ def _check_scrapes(node, n_groups, slab_bytes, cuda=True):
         raise AssertionError(f"lanes: node {node.id} /engine/kernels "
                              f"{ks['costs']}")
     # on the card, one ledger row a CUDA library built or loaded in this
-    # process (the commit and propose kernels' only where an earlier phase
-    # ran them), the runtime's two (the accept kernel's and the wave
-    # kernels') loaded
+    # process (the commit, propose and accept-reply kernels' only where an
+    # earlier phase ran them), the runtime's two (the accept kernel's and
+    # the wave kernels') loaded
     libs = {k: r for k, r in ks["kernels"].items() if k.startswith("cuda:")}
     ran = ("cuda:accept", "cuda:wave")
     if cuda and (not set(ran) <= set(libs) <=
-                 {*ran, "cuda:commit", "cuda:propose"} or any(
+                 {*ran, "cuda:commit", "cuda:propose",
+                  "cuda:accept_reply"} or any(
             libs[k]["loads"] < 1 for k in ran)):
         raise AssertionError(f"lanes: node {node.id} /engine/kernels "
                              f"ledger rows {ks['kernels']}")
@@ -3712,6 +4087,21 @@ def main(argv=None) -> int:
              f"slots near INT32_MAX at B={STORM_B}, each seed; the "
              f"runtime's slab (G={RT_CAPACITY}) at every bucket "
              f"{list(RT_BUCKETS)}, padded")
+        rtiming, reply_err, reply_checked = phase_reply_parity(line)
+        info(f"parity: accept-reply kernel bit-identical to "
+             f"accept_reply_reference in {reply_checked} calls: G={G_FULL}, "
+             f"W={W_FULL} with non-coordinator and phase-1-pending rows, "
+             f"columns holding other slots or already emitted, partial "
+             f"vote bitmaps, members 1, 3 and 5; B={list(REPLY_BS)} over "
+             f"seeds {list(PARITY_SEEDS)}, each past 8 also half live, "
+             f"padded and packed; B={BIG_B}; {REPLY_CROWD[0]} lanes on "
+             f"{REPLY_CROWD[1]} rows (acks beside preempting nacks); "
+             f"{REPLY_SPLIT[0]} keys across tiles in {REPLY_SPLIT[1]} "
+             f"lanes; the epoch wrapping in a propose between two "
+             f"accept-replies; the storm's lanes at B={STORM_B}; slots near "
+             f"INT32_MAX at B={STORM_B}, each seed; the runtime's slab "
+             f"(G={RT_CAPACITY}) at every bucket {list(RT_BUCKETS)}, padded "
+             f"and packed")
         wtiming, wave_err, wave_checked = phase_wave_parity(line)
         info(f"parity: the acceptor and coordinator wave kernels "
              f"bit-identical to their torch bodies in {wave_checked} "
@@ -3787,6 +4177,14 @@ def main(argv=None) -> int:
         by_path = {p: [c[name] for c in cs] for p, cs in paths.items()}
         return sum(sum(v) for v in by_path.values()), by_path
 
+    # the runtime's replies go through the coordinator wave: only the
+    # storm and the SPI's plain accept_reply waves launch the kernel
+    stray = {p: v for p, v in launched("accept_reply")[1].items()
+             if p not in ("storm", "spi") and any(v)}
+    if stray:
+        return fail(f"accept-reply kernel launched off the storm and the "
+                    f"SPI: {stray}")
+
     big = timing[str(max(PARITY_BS))]
     n, by_path = launched("accept")
     kernels = [{
@@ -3847,6 +4245,27 @@ def main(argv=None) -> int:
         "floor_ms": big["floor_ms"],
         "library_ms": None,
         "by_lanes": ptiming,
+    })
+    big = rtiming[f"storm_{STORM_B}"]
+    n, by_path = launched("accept_reply")
+    kernels.append({
+        "name": "accept_reply",
+        "route": "cuda",
+        "source": "gigapaxos_tpu_torch/ops/csrc/accept_reply.cu",
+        "replaces": "gigapaxos_tpu/ops/kernels.py:152",
+        "launches": n,
+        "launches_by_path": by_path,
+        "parity": "bit-exact",
+        "max_abs_err": reply_err,
+        "lanes": STORM_B,
+        "ms": big["ms"],
+        "ms_cold_l2": big["ms_cold"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": "bytes",
+        "floor_ms": big["floor_ms"],
+        "library_ms": None,
+        "by_lanes": rtiming,
     })
     for name, replaces in (("acceptor_wave", "gigapaxos_tpu/ops/kernels.py:644"),
                            ("coordinator_wave",

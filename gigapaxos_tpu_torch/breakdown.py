@@ -27,11 +27,11 @@ For each it reports the host wall per step and decisions per second
 (profiler off), then, from a profiled window of as many steps, the
 device busy share (device-side event time over that window's wall), the
 top device kernels by time with their share, and the accept, commit,
-propose and wave kernels' shares (found by their names,
+propose, accept-reply and wave kernels' shares (found by their names,
 ``accept_cuda.KERNEL_NAME``, ``commit_cuda.KERNEL_NAME``,
-``propose_cuda.KERNEL_NAME`` and each ``wave_cuda`` kernel's
-``kernel_name``; a window that launched one but shows no time for it is
-an error, not a 0% share).
+``propose_cuda.KERNEL_NAME``, ``accept_reply_cuda.KERNEL_NAME`` and
+each ``wave_cuda`` kernel's ``kernel_name``; a window that launched one
+but shows no time for it is an error, not a 0% share).
 One warm-up step precedes both windows.  For ``wave`` it reports the
 host wall of a wave (median and mean), alone, with three engine threads
 and beside a Python-only thread, the
@@ -85,9 +85,11 @@ def _profile(step, steps: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from gigapaxos_tpu_torch.ops import commit_cuda, propose_cuda, wave_cuda
+    from gigapaxos_tpu_torch.ops import (accept_reply_cuda, commit_cuda,
+                                         propose_cuda, wave_cuda)
     from gigapaxos_tpu_torch.ops.accept_cuda import KERNEL_NAME, accept
     commit, propose = commit_cuda.commit, propose_cuda.propose
+    reply = accept_reply_cuda.accept_reply
     step()  # warm-up, outside both windows
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -96,6 +98,7 @@ def _profile(step, steps: int) -> dict:
     launches = accept.launches
     commit_launches = commit.launches
     propose_launches = propose.launches
+    reply_launches = reply.launches
     wave_launches = sum(k.launches for k in wave_cuda.KERNELS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -107,6 +110,7 @@ def _profile(step, steps: int) -> dict:
     launches = accept.launches - launches
     commit_launches = commit.launches - commit_launches
     propose_launches = propose.launches - propose_launches
+    reply_launches = reply.launches - reply_launches
     wave_launches = sum(k.launches for k in wave_cuda.KERNELS) - \
         wave_launches
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
@@ -133,6 +137,13 @@ def _profile(step, steps: int) -> dict:
                            f"{propose_launches} times but the profiler "
                            f"shows no device time for "
                            f"{propose_cuda.KERNEL_NAME}")
+    reply_us = sum(us for k, us, _ in rows
+                   if accept_reply_cuda.KERNEL_NAME in k)
+    if reply_launches and not reply_us:
+        raise RuntimeError(f"breakdown: the accept-reply kernel launched "
+                           f"{reply_launches} times but the profiler "
+                           f"shows no device time for "
+                           f"{accept_reply_cuda.KERNEL_NAME}")
     wave_us = sum(us for k, us, _ in rows
                   if any(w.kernel_name in k for w in wave_cuda.KERNELS))
     if wave_launches and not wave_us:
@@ -158,6 +169,10 @@ def _profile(step, steps: int) -> dict:
         else 0.0,
         "propose_kernel_us_per_step": propose_us / steps,
         "propose_launches_per_step": propose_launches / steps,
+        "accept_reply_kernel_share_of_device": reply_us / busy_us
+        if busy_us else 0.0,
+        "accept_reply_kernel_us_per_step": reply_us / steps,
+        "accept_reply_launches_per_step": reply_launches / steps,
         "wave_kernel_share_of_device": wave_us / busy_us if busy_us
         else 0.0,
         "wave_kernel_us_per_step": wave_us / steps,
@@ -457,7 +472,10 @@ def main(argv=None) -> int:
               f"({r['commit_kernel_share_of_device']:.2%}), propose kernel "
               f"{r['propose_kernel_us_per_step']:.1f} us/step in "
               f"{r['propose_launches_per_step']:.0f} launches "
-              f"({r['propose_kernel_share_of_device']:.2%}), "
+              f"({r['propose_kernel_share_of_device']:.2%}), accept-reply "
+              f"kernel {r['accept_reply_kernel_us_per_step']:.1f} us/step in "
+              f"{r['accept_reply_launches_per_step']:.0f} launches "
+              f"({r['accept_reply_kernel_share_of_device']:.2%}), "
               f"wave kernels {r['wave_kernel_us_per_step']:.1f} us/step in "
               f"{r['wave_launches_per_step']:.0f} launches "
               f"({r['wave_kernel_share_of_device']:.2%}) [{card}]")

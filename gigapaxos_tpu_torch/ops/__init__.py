@@ -3,8 +3,9 @@
 Port of ``gigapaxos_tpu.ops``: state for ALL groups lives in ``[G]`` /
 ``[G, W, k]`` device tensors and each message type is one batched
 kernel over a struct-of-arrays packet batch (``kernels``), with the
-accept, commit and propose transitions (``accept_cuda``,
-``commit_cuda``, ``propose_cuda``) and the runtime's two fused waves
+accept, commit, propose and accept-reply transitions (``accept_cuda``,
+``commit_cuda``, ``propose_cuda``, ``accept_reply_cuda``; the last two
+share the run rank of ``rank_cuda``) and the runtime's two fused waves
 (``wave_cuda``) as hand-written Hopper kernels.
 """
 

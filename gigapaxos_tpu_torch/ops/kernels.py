@@ -34,24 +34,27 @@ How the XLA idioms map to torch, exactly:
 - ``jax.lax.cond(pre.any(), ...)`` in the reply's resign step: a masked
   scatter with no branch (a branch on a CUDA tensor forces a sync).
 
-The accept, commit and propose transitions are not written here:
-:func:`accept_batch` dispatches to
+The accept, commit, propose and accept-reply transitions are not
+written here: :func:`accept_batch` dispatches to
 :mod:`gigapaxos_tpu_torch.ops.accept_cuda`, :func:`commit_batch` (the
-decide storm's commits) to :mod:`gigapaxos_tpu_torch.ops.commit_cuda`
-and :func:`propose_batch` and :func:`propose_packed` (the storm's and
-the SPI's plain proposes) to :mod:`gigapaxos_tpu_torch.ops.propose_cuda`,
-each a hand-written Hopper kernel on a CUDA device (one cooperative
-launch a call) and its plain torch version on the CPU.  The runtime's
+decide storm's commits) to :mod:`gigapaxos_tpu_torch.ops.commit_cuda`,
+:func:`propose_batch` and :func:`propose_packed` (the storm's and the
+SPI's plain proposes) to :mod:`gigapaxos_tpu_torch.ops.propose_cuda`
+and :func:`accept_reply_batch` and :func:`accept_reply_packed` (the
+storm's and the SPI's plain accept-replies) to
+:mod:`gigapaxos_tpu_torch.ops.accept_reply_cuda`, each a hand-written
+Hopper kernel on a CUDA device (one cooperative launch a call) and its
+plain torch version on the CPU.  The runtime's
 fused waves (``accept_commit_p``, ``commit_p``,
 ``propose_accept_self_p``, ``accept_reply_commit_self_p`` and
 ``request_reply_p``) dispatch the same way, to the two kernels of
 :mod:`gigapaxos_tpu_torch.ops.wave_cuda` on a CUDA device (one launch a
 call) and to the torch bodies below on the CPU (:func:`acceptor_wave`,
 :func:`coordinator_wave`).  Those bodies are pure torch on any device
-(their propose, accept and commit steps are ``propose_reference``,
-``accept_reference`` and ``commit_reference``), so they are also the
-kernels' yardstick on the card.  Accept-reply stays a torch body on
-every device.
+(their propose, accept, accept-reply and commit steps are
+``propose_reference``, ``accept_reference``, ``accept_reply_reference``
+and ``commit_reference``), so they are also the kernels' yardstick on
+the card.
 """
 
 from __future__ import annotations
@@ -60,21 +63,14 @@ from typing import NamedTuple
 
 import torch
 
-from gigapaxos_tpu_torch.ops import (accept_cuda, commit_cuda, propose_cuda,
-                                     wave_cuda)
+from gigapaxos_tpu_torch.ops import (accept_cuda, accept_reply_cuda,
+                                     commit_cuda, propose_cuda, wave_cuda)
 from gigapaxos_tpu_torch.ops.types import (ACC_BAL, ACC_RHI, ACC_RLO,
-                                           ACC_SLOT, EMITTED_BIT,
-                                           FIELDS, NO_BALLOT, NO_SLOT,
-                                           PROP_RHI, PROP_RLO, PROP_SLOT,
-                                           PROP_VOTES, VOTE_MASK,
-                                           ColumnarState)
+                                           ACC_SLOT, FIELDS, NO_BALLOT,
+                                           NO_SLOT, ColumnarState)
 
 i32 = torch.int32
 INT32_MIN = accept_cuda.INT32_MIN
-
-
-def _majority(members):
-    return members // 2 + 1
 
 
 def _gi(g, valid):
@@ -82,20 +78,10 @@ def _gi(g, valid):
     return torch.where(valid, g, 0).long()
 
 
-def _iota(n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.arange(n, dtype=i32, device=like.device)
-
-
 def _scatter_max_(dst, gi, vals, live):
     """``dst.at[g].max(vals)`` over live lanes."""
     dst.scatter_reduce_(0, gi, torch.where(live, vals, INT32_MIN),
                         reduce="amax")
-
-
-def _scatter_add_(dst, idx, vals, live):
-    """``dst.at[idx].add(vals)`` over live lanes (``idx`` int64)."""
-    dst.index_add_(0, torch.where(live, idx, 0),
-                   torch.where(live, vals, 0).to(dst.dtype))
 
 
 def _flag_(flags, gi, live, value: bool):
@@ -118,18 +104,6 @@ def _set_cols_(plane, gi, w, vals, live):
     """``plane.at[g, w].set(vals)`` over live lanes (boolean-mask put);
     ``vals`` is ``[..., k]`` for a ``[G, W, k]`` plane."""
     plane[gi[live], w[live].long()] = vals[live]
-
-
-def _popcount(x):
-    """Bit count of non-negative int32 values (SWAR)."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return (x + (x >> 8) + (x >> 16) + (x >> 24)) & 0x3F
-
-
-# the run rank's plain version (the accept-reply body's dedupe uses it)
-_run_rank = propose_cuda.run_rank
 
 
 # --------------------------------------------------------------------------
@@ -164,55 +138,19 @@ class AcceptReplyOut(NamedTuple):
     req_hi: torch.Tensor
 
 
+def _reply_out(out) -> AcceptReplyOut:
+    """The accept-reply's packed ``out[6, B]`` as named lanes."""
+    return AcceptReplyOut(out[0] != 0, out[1] != 0, out[5], out[2], out[3],
+                          out[4])
+
+
 def accept_reply_batch(state: ColumnarState, g, slot, bal, sender, acked,
                        valid):
-    """Handle (batched) accept replies: ``bal`` is the accepted ballot on
-    ack lanes and the acceptor's (higher) promise on nack lanes."""
-    W = state.W
-    gi = _gi(g, valid)
-    w = torch.where(valid, slot % W, 0).long()
-
-    coord_here = state.is_coord[gi] & state.coord_active[gi]
-    cbal = state.cbal[gi]
-    is_rel = valid & coord_here & (bal == cbal)
-    propc = state.prop[gi, w]  # [B, 4] pre-batch proposal columns
-    match = is_rel & acked & (slot >= 0) & (propc[:, PROP_SLOT] == slot)
-
-    sender_i = sender.to(i32)
-    bit = torch.ones_like(sender_i) << sender_i
-    prev = propc[:, PROP_VOTES]
-    fresh = match & (((prev >> sender_i) & 1) == 0)
-    votes = state.prop.view(-1)
-    flat = (gi * W + w) * 4 + PROP_VOTES
-    _scatter_add_(votes, flat, bit, fresh)
-
-    # re-gather POST-scatter: every lane of a column sees the whole
-    # batch's votes; `fresh` never adds a bit twice (no carry into
-    # EMITTED_BIT)
-    newv = votes[flat]
-    cnt = _popcount(newv & VOTE_MASK)
-    quorum = match & (cnt >= _majority(state.members[gi]))
-    iota = _iota(g.shape[0], g)
-    dup_before = quorum & (_run_rank(torch.where(quorum, g, -1),
-                                     torch.where(quorum, slot, iota)) > 0)
-    emitted_prev = (prev & EMITTED_BIT) != 0
-    newly = quorum & ~emitted_prev & ~dup_before
-    _scatter_add_(votes, flat, torch.full_like(prev, EMITTED_BIT), newly)
-
-    # preemption: a nack above our ballot ends our reign
-    pre = valid & state.is_coord[gi] & ~acked & (bal > cbal)
-    _flag_(state.is_coord, gi, pre, False)
-    _flag_(state.coord_active, gi, pre, False)
-
-    out = AcceptReplyOut(
-        newly_decided=newly,
-        preempted=pre,
-        dec_slot=slot,
-        dec_bal=cbal,
-        req_lo=propc[:, PROP_RLO],
-        req_hi=propc[:, PROP_RHI],
-    )
-    return state, out
+    """Through the accept-reply kernel (``accept_reply_cuda.accept_reply``):
+    ``bal`` is the accepted ballot on ack lanes and the acceptor's
+    (higher) promise on nack lanes."""
+    return state, _reply_out(accept_reply_cuda.accept_reply(
+        state, g, slot, bal, sender, acked, valid))
 
 
 # --------------------------------------------------------------------------
@@ -416,12 +354,11 @@ def accept_packed(state: ColumnarState, packed):
 
 def accept_reply_packed(state: ColumnarState, packed):
     """packed[6, B]: g, slot, bal, sender, acked, valid -> out[6, B]:
-    newly_decided, preempted, dec_bal, req_lo, req_hi, dec_slot."""
-    state, o = accept_reply_batch(state, packed[0], packed[1], packed[2],
-                                  packed[3], packed[4] != 0,
-                                  packed[5] != 0)
-    return state, torch.stack([_i(o.newly_decided), _i(o.preempted),
-                               o.dec_bal, o.req_lo, o.req_hi, o.dec_slot])
+    newly_decided, preempted, dec_bal, req_lo, req_hi, dec_slot (the
+    accept-reply kernel's own output)."""
+    return state, accept_reply_cuda.accept_reply(
+        state, packed[0], packed[1], packed[2], packed[3], packed[4],
+        packed[5])
 
 
 def propose_accept_self_packed(state: ColumnarState, packed):
@@ -438,8 +375,8 @@ def propose_accept_self_packed(state: ColumnarState, packed):
                                       gr)
     acked, cur_bal = ao[0] != 0, ao[3]
     reply_bal = torch.where(acked, po.cbal, cur_bal)
-    state, ro = accept_reply_batch(state, g, po.slot, reply_bal, smidx,
-                                   acked, gr)
+    ro = _reply_out(accept_reply_cuda.accept_reply_reference(
+        state, g, po.slot, reply_bal, smidx, acked, gr))
     return state, torch.stack([
         _i(po.granted), _i(po.rejected), _i(po.throttled), po.slot,
         po.cbal, _i(gr & acked), _i(ro.newly_decided),
@@ -451,9 +388,9 @@ def accept_reply_commit_self_packed(state: ColumnarState, packed):
     out[9, B]: newly_decided, preempted, dec_bal, req_lo, req_hi,
     dec_slot, applied, stale, new_cursor.  Vote, then own commit."""
     g = packed[0]
-    state, ro = accept_reply_batch(state, g, packed[1], packed[2],
-                                   packed[3], packed[4] != 0,
-                                   packed[5] != 0)
+    ro = _reply_out(accept_reply_cuda.accept_reply_reference(
+        state, g, packed[1], packed[2], packed[3], packed[4] != 0,
+        packed[5] != 0))
     co = commit_cuda.commit_reference(state, g, ro.dec_slot, ro.req_lo,
                                       ro.req_hi, ro.newly_decided)
     return state, torch.stack([

@@ -34,48 +34,26 @@ plain version, which the CPU tests hold against the JAX package and
 coordinator wave's torch yardstick calls :func:`propose_reference`
 directly, so it launches no kernel.
 
-The wrapper owns the run rank's workspace (:class:`Workspace`): a list
-head a row, tagged with an epoch the kernel keeps on the device, so no
-call clears it; one a device, stream and ``G``, since two streams may
-run the kernel at once on states of one size (the engine lanes).
+The run rank's workspace (``rank_cuda.Workspace``: a list head a row,
+tagged with an epoch the kernels keep on the device, so no call clears
+it) is one a device, stream and ``G``, shared with the accept-reply
+kernel; ``rank_cuda`` also holds the plain run rank and the grid plan.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from dataclasses import dataclass
-from typing import Dict, Tuple
 
 import torch
 
+# the run rank's geometry, plain version, grid and workspace are shared
+# with the accept-reply kernel
+from gigapaxos_tpu_torch.ops.rank_cuda import (THREADS, grid_plan, run_rank,
+                                               workspace)
 from gigapaxos_tpu_torch.ops.types import ColumnarState
 
-# launch geometry of csrc/propose.cu (kThreads, one lane a thread, one
-# tile a block at a time); the library reports its own at load and the
-# wrapper checks they agree
-THREADS = 256
 KERNEL_NAME = "propose_coop_kernel"
-# bytes of one list entry of the workspace (rank_dev.cuh RankEntry)
-ENTRY_BYTES = 16
-
-
-def run_rank(key1, key2):
-    """Rank of each lane within its equal-(key1, key2) run, in original
-    lane order (``kernels.py:_run_rank``: stable lexsort, key1 primary,
-    then a run-start cummax)."""
-    B = key1.shape[0]
-    o2 = torch.sort(key2, stable=True).indices
-    o1 = torch.sort(key1[o2], stable=True).indices
-    order = o2[o1]
-    k1, k2 = key1[order], key2[order]
-    iota = torch.arange(B, dtype=torch.int32, device=key1.device)
-    start = torch.ones(B, dtype=torch.bool, device=key1.device)
-    start[1:] = (k1[1:] != k1[:-1]) | (k2[1:] != k2[:-1])
-    run_start = torch.cummax(torch.where(start, iota, 0), 0).values
-    rank = torch.empty_like(iota)
-    rank[order] = iota - run_start
-    return rank
 
 
 def propose_reference(state: ColumnarState, g, rlo, rhi, valid
@@ -110,40 +88,6 @@ def propose_reference(state: ColumnarState, g, rlo, rhi, valid
                         (can & ~in_win).to(torch.int32), slot, cbal])
 
 
-def grid_plan(B: int, limit: int) -> int:
-    """Blocks of the cooperative launch for ``B`` lanes: one block per
-    ``THREADS``-lane tile, at most ``limit`` (the co-resident block count,
-    which the grid-wide barrier needs); 0 for no lanes.  Block ``b``
-    takes tiles ``b, b + blocks, ...``."""
-    if B <= 0:
-        return 0
-    if limit < 1:
-        raise ValueError(f"propose kernel: co-resident limit {limit} < 1")
-    return min(-(-B // THREADS), limit)
-
-
-@dataclass
-class Workspace:
-    """The run rank's device workspace for one device, stream and ``G``:
-    ``head[G]`` (int64: the list's first entry, tagged with the epoch of
-    the call that wrote it; 0 is no call's), ``epoch`` (the last call's,
-    kept and advanced by the kernel), and a pool of list entries and
-    their earlier-tile sums, indexed by lane (grown to the widest call)."""
-
-    head: torch.Tensor
-    epoch: torch.Tensor
-    pool: torch.Tensor
-    base: torch.Tensor
-
-    def fit(self, B: int) -> None:
-        """Grow the lane-indexed pool to hold ``B`` lanes."""
-        if self.base.numel() < B:
-            dev = self.head.device
-            self.pool = torch.empty((B, ENTRY_BYTES // 4), dtype=torch.int32,
-                                    device=dev)
-            self.base = torch.empty(B, dtype=torch.int32, device=dev)
-
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -159,8 +103,6 @@ class ProposeKernel:
         self._count_lock = threading.Lock()
         self._lib = None
         self._limit = {}  # device index -> co-resident block count
-        self._ws: Dict[Tuple[int, int, int], Workspace] = {}
-        self._ws_lock = threading.Lock()
 
     def load(self) -> ctypes.CDLL:
         """Build (first use) and bind the kernel's library."""
@@ -202,23 +144,6 @@ class ProposeKernel:
             self._limit[idx] = n.value
         return self._limit[idx]
 
-    def workspace(self, dev: torch.device, G: int) -> Workspace:
-        """The workspace of the current stream on ``dev`` for ``G`` rows
-        (made zeroed at first use: no head holds a live epoch)."""
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        key = (dev.index, stream, G)
-        with self._ws_lock:
-            ws = self._ws.get(key)
-            if ws is None:
-                ws = Workspace(
-                    head=torch.zeros(G, dtype=torch.int64, device=dev),
-                    epoch=torch.zeros(1, dtype=torch.int32, device=dev),
-                    pool=torch.empty((0, ENTRY_BYTES // 4),
-                                     dtype=torch.int32, device=dev),
-                    base=torch.empty(0, dtype=torch.int32, device=dev))
-                self._ws[key] = ws
-            return ws
-
     def __call__(self, state: ColumnarState, g, rlo, rhi, valid
                  ) -> torch.Tensor:
         """``out[5, B]`` int32 (granted, rejected, throttled, slot,
@@ -254,7 +179,7 @@ class ProposeKernel:
         blocks = grid_plan(B, self.coresident_blocks(dev))
         lib = self.load()
         with torch.cuda.device(dev):
-            ws = self.workspace(dev, state.G)
+            ws = workspace(dev, state.G)
             ws.fit(B)
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.gp_propose(

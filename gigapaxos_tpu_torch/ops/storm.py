@@ -7,11 +7,11 @@ living on one device:
     propose (coordinator) → accept ×R → accept_reply ×R (quorum count)
     → commit ×R (window frontier advance)
 
-On a CUDA device the propose, each accept and each commit is one
-cooperative launch of a hand-written Hopper kernel (``propose_cuda``,
-``accept_cuda``, ``commit_cuda``): 1 + 2R launches a step.  Accept_reply
-is still a torch body, and the glue (``full_like``, the ``|`` of
-``newly``, the sum) torch ops.
+On a CUDA device the propose, each accept, each accept_reply and each
+commit is one cooperative launch of a hand-written Hopper kernel
+(``propose_cuda``, ``accept_cuda``, ``accept_reply_cuda``,
+``commit_cuda``): 1 + 3R launches a step.  The glue (``full_like``,
+the ``|`` of ``newly``, the sum) is torch ops.
 The replica states are updated in place (the JAX step donates them).
 """
 

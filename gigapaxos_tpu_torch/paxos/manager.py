@@ -2664,8 +2664,9 @@ class PaxosNode:
         waves' costs (bytes accessed from the shapes; flops null), and
         the hand-written kernels' launches in this process, by kernel
         (``cuda:accept``, ``cuda:commit``, ``cuda:propose``,
-        ``cuda:acceptor_wave``, ``cuda:coordinator_wave``; 0 off the
-        card, where the wrappers run their plain versions).
+        ``cuda:accept_reply``, ``cuda:acceptor_wave``,
+        ``cuda:coordinator_wave``; 0 off the card, where the wrappers run
+        their plain versions).
         Read under the engine locks, as the reference's cost sweep."""
         from gigapaxos_tpu_torch.utils.engineledger import kernel_launches
         with contextlib.ExitStack() as stack:

@@ -118,11 +118,14 @@ def cache_metrics() -> dict:
 def kernel_launches() -> Dict[str, int]:
     """This process's launches of each hand-written kernel, by library
     and kernel (``cuda:accept``, ``cuda:commit``, ``cuda:propose``,
-    ``cuda:acceptor_wave``, ``cuda:coordinator_wave``); 0 off the card,
-    where the wrappers run their plain versions."""
-    from gigapaxos_tpu_torch.ops import (accept_cuda, commit_cuda,
-                                         propose_cuda, wave_cuda)
+    ``cuda:accept_reply``, ``cuda:acceptor_wave``,
+    ``cuda:coordinator_wave``); 0 off the card, where the wrappers run
+    their plain versions."""
+    from gigapaxos_tpu_torch.ops import (accept_cuda, accept_reply_cuda,
+                                         commit_cuda, propose_cuda,
+                                         wave_cuda)
     return {f"cuda:{k.name}": k.launches
             for k in (accept_cuda.accept, commit_cuda.commit,
-                      propose_cuda.propose) + wave_cuda.KERNELS}
+                      propose_cuda.propose, accept_reply_cuda.accept_reply)
+            + wave_cuda.KERNELS}
 

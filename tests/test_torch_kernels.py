@@ -13,6 +13,7 @@ import torch
 
 from gigapaxos_tpu.ops import kernels as jk
 from gigapaxos_tpu.ops.types import make_state as jax_make_state
+from gigapaxos_tpu_torch.ops import accept_reply_cuda, rank_cuda
 from gigapaxos_tpu_torch.ops import kernels as tk
 from gigapaxos_tpu_torch.ops.types import (NO_BALLOT, NO_SLOT,
                                            state_from_numpy, state_to_numpy)
@@ -251,10 +252,10 @@ def test_run_rank_and_popcount_edges():
     """The two helpers with no one-call torch counterpart."""
     k1 = torch.tensor([3, -1, 3, 3, 2, -1, 2, 3], dtype=torch.int32)
     k2 = torch.tensor([0, 1, 0, 1, 5, 5, 5, 0], dtype=torch.int32)
-    rank = tk._run_rank(k1, k2).tolist()
+    rank = rank_cuda.run_rank(k1, k2).tolist()
     assert rank == [0, 0, 1, 0, 0, 0, 1, 2]
     assert rank == _np(jk._run_rank(jnp.asarray(k1.numpy()),
                                     jnp.asarray(k2.numpy()))).tolist()
     x = torch.tensor([0, 1, 3, (1 << 30) - 1, 0x2AAAAAAA, 1 << 29],
                      dtype=torch.int32)
-    assert tk._popcount(x).tolist() == [0, 1, 2, 30, 15, 1]
+    assert accept_reply_cuda.popcount(x).tolist() == [0, 1, 2, 30, 15, 1]

@@ -85,8 +85,8 @@ def _check_throughput(row):
         [0] * len(info["depth_sweep"])
     assert info["knee_depth"] in [r["depth"] for r in info["depth_sweep"]]
     assert set(info["engine"]["launches"]) == {
-        "cuda:accept", "cuda:commit", "cuda:propose", "cuda:acceptor_wave",
-        "cuda:coordinator_wave"}
+        "cuda:accept", "cuda:commit", "cuda:propose", "cuda:accept_reply",
+        "cuda:acceptor_wave", "cuda:coordinator_wave"}
 
 
 def _check_scale(row):
@@ -159,7 +159,8 @@ def test_multiproc_throughput_mode(tmp_path):
     eng = out["info"]["engine"]
     assert len(eng["launches_by_server"]) == 3
     assert eng["launches"] == {"cuda:accept": 0, "cuda:commit": 0,
-                               "cuda:propose": 0, "cuda:acceptor_wave": 0,
+                               "cuda:propose": 0, "cuda:accept_reply": 0,
+                               "cuda:acceptor_wave": 0,
                                "cuda:coordinator_wave": 0}  # plain on CPU
 
 
