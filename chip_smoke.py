@@ -427,7 +427,7 @@ def parity_state(G, W, gen, active_share=0.9):
     """A state with inactive rows, advanced cursors, promised ballots and
     a filled accepted window."""
     from gigapaxos_tpu_torch.ops.types import make_state
-    dev = torch.device("cuda")
+    dev = gen.device  # the card's, or the CPU's in a rehearsal
     st = make_state(G, W, dev)
 
     def ri(lo, hi, shape):
@@ -665,7 +665,9 @@ def phase_parity(name_line):
 
 # -- phase 2: the storm's commit kernel -------------------------------------
 
-COMMIT_BS = (1, 8, 4096, 4099, 1 << 18)
+# the widths of PERF.md's commit row, and the seams of the accept-reply's
+# paths
+COMMIT_BS = (1, 8, 64, 512, 513, 4096, 4097, 4099, 1 << 18)
 INT32_MAX = (1 << 31) - 1
 
 
@@ -767,15 +769,15 @@ def clone_commit(st):
                                exec_cursor=st.exec_cursor.clone())
 
 
-def check_commit(base, lanes, what):
-    """The kernel and ``commit_reference`` on identical clones of
-    ``base``: all four output rows on every lane (padding lanes read row
-    0's new cursor in both), ``dec`` and ``exec_cursor`` must be
-    bit-identical.  Returns the max abs error (0), the reference's
-    output and state."""
+def check_commit(base, lanes, what, kern=None):
+    """The kernel (``kern``, else this tree's wrapper) and
+    ``commit_reference`` on identical clones of ``base``: all four
+    output rows on every lane (padding lanes read row 0's new cursor in
+    both), ``dec`` and ``exec_cursor`` must be bit-identical.  Returns
+    the max abs error (0), the reference's output and state."""
     from gigapaxos_tpu_torch.ops.commit_cuda import commit, commit_reference
     st_k, st_r = clone_commit(base), clone_commit(base)
-    out_k = commit(st_k, *lanes)
+    out_k = (kern or commit)(st_k, *lanes)
     out_r = commit_reference(st_r, *lanes)
     torch.cuda.synchronize()
     max_err = 0
@@ -850,9 +852,11 @@ def phase_commit_parity(name_line):
     advanced cursors and decided slots behind a gap at each cursor: at
     ``COMMIT_BS`` over ``PARITY_SEEDS``, with lanes padded as the
     backend pads, at ``BIG_B`` (past the co-resident grid), on the
-    contended lanes, on the storm's lanes (an all-active state) and
-    with cursors near INT32_MAX.  Times at each width (seed 0) and on
-    the storm's lanes."""
+    contended lanes (4096 and 2^18 lanes on 64 rows), on the storm's
+    lanes at 2^18 and ``BIG_B`` (an all-active state: every lane stores,
+    so the second barrier never runs) and with cursors near INT32_MAX.
+    Times at each width (seed 0), on the contended lanes and on the
+    storm's lanes."""
     hbm = HBM_BYTES_PER_S["pcie" if "PCIe" in name_line else "default"]
     rows = {}
     max_err = 0
@@ -884,6 +888,9 @@ def phase_commit_parity(name_line):
             held(base, contended_commit_lanes(base, B, n_rows, gen),
                  f"contended, {B} lanes on {n_rows} rows",
                  f"contended_{B}")
+            held(base, contended_commit_lanes(base, STORM_B, n_rows, gen),
+                 f"contended, {STORM_B} lanes on {n_rows} rows",
+                 f"{STORM_B}_on_{n_rows}")
         del base
         base = commit_state(G_FULL, W_FULL, gen, near_max=True)
         held(base, commit_lanes(base, STORM_B, gen, lo=-2,
@@ -893,8 +900,12 @@ def phase_commit_parity(name_line):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(PARITY_SEEDS[0])
     base = commit_state(G_FULL, W_FULL, gen, active_share=1.0)
-    held(base, storm_commit_lanes(base, STORM_B, gen), "storm lanes",
-         f"storm_{STORM_B}")
+    for B in (STORM_B, BIG_B):  # every lane stores: no second barrier
+        held(base, storm_commit_lanes(base, B, gen), f"storm lanes, B={B}",
+             f"storm_{B}")
+        if rows[f"storm_{B}"]["stores"] != B:
+            raise AssertionError(f"commit storm lanes, B={B}: "
+                                 f"{rows[f'storm_{B}']['stores']} stores")
     del base
     torch.cuda.empty_cache()
     for k, r in rows.items():
@@ -1158,12 +1169,17 @@ def phase_propose_parity(name_line):
 
 # -- phase 2: the accept-reply kernel ---------------------------------------
 
-REPLY_BS = (1, 8, 64, 512, 4096, 4099, 1 << 18)
+# both paths and their seams: one CTA up to 512 lanes, one cluster up to
+# 4096, the cooperative grid above
+REPLY_BS = (1, 8, 64, 512, 513, 4096, 4097, 4099, 1 << 18)
 REPLY_SENDERS = 5  # sender member indexes 0..4 (members 1, 3 and 5)
 # many lanes on few rows: each row's acks beside its preempting nacks
-REPLY_CROWD = (4096, 64)
-# keys whose lanes lie in three tiles: keys, lanes
-REPLY_SPLIT = (256, 4096)
+# (the small path's widest chunk, and a grid's)
+REPLY_CROWDS = ((4096, 64), (8192, 64))
+# keys whose three lanes lie in three of the batch's SPLIT_SEG-lane
+# segments (a cluster's CTAs; the grid's blocks): keys, lanes
+REPLY_SPLITS = ((256, 4096), (512, 1 << 18))
+SPLIT_SEG = 512
 
 
 def _wrap32(x):
@@ -1214,13 +1230,21 @@ def reply_lanes(st, B, gen, rows=None, valid_share=0.9):
     n_rows = st.G if rows is None else rows.numel()
     keys = torch.randint(0, n_rows * per, (2 * B + 64,), generator=gen,
                          device=dev, dtype=torch.int64).unique()
-    keys = keys[torch.randperm(keys.numel(), generator=gen,
-                               device=dev)[:B]]
-    assert keys.numel() == B
+    keys = keys[torch.randperm(keys.numel(), generator=gen, device=dev)]
     r = keys // per if rows is None else rows.long()[keys // per]
     c = keys // (3 * REPLY_SENDERS) % W
     shift = torch.tensor([0, W, -W], device=dev)[keys // REPLY_SENDERS % 3]
     slot = _wrap32(st.prop[r, c, 0].long() + shift)
+    # one lane a (row, slot, sender): a column of no slot shifted a window
+    # may name another column's slot
+    _, inv = torch.unique(r * (1 << 36) + (slot.long() + (1 << 31)) * 8 +
+                          keys % REPLY_SENDERS, return_inverse=True)
+    first = torch.full((int(inv.max()) + 1,), keys.numel(), device=dev,
+                       dtype=torch.int64).scatter_reduce_(
+        0, inv, torch.arange(keys.numel(), device=dev), reduce="amin")
+    pick = first.sort().values[:B]
+    assert pick.numel() == B
+    keys, r, slot = keys[pick], r[pick], slot[pick]
     step = torch.tensor([0, 0, 0, 0, -1, 1, 3], device=dev)[torch.randint(
         0, 7, (B,), generator=gen, device=dev)]
     bal = _wrap32(st.cbal[r].long() + step)
@@ -1245,17 +1269,22 @@ def padded_reply_lanes(st, n, B, gen):
 
 def storm_reply_state_lanes(G, W, B, gen):
     """The storm's second reply on an all-active, all-coordinator state
-    of members 3: B distinct rows, each lane on a column that holds its
-    slot with sender 0's vote, from sender 1 at ``cbal``, acked, valid:
-    every lane crosses quorum and is newly decided."""
+    of members 3: B lanes on distinct rows (past G lanes, each row takes
+    as many lanes as it must, on distinct columns), each lane on a
+    column that holds its slot with sender 0's vote, from sender 1 at
+    ``cbal``, acked, valid: every lane crosses quorum and is newly
+    decided."""
     st = reply_state(G, W, gen)
     dev = st.device
     st.active.fill_(True)
     st.is_coord.fill_(True)
     st.coord_active.fill_(True)
     st.members.fill_(3)
-    r = torch.randperm(G, generator=gen, device=dev)[:B]
-    c = torch.randint(0, W, (B,), generator=gen, device=dev)
+    assert B <= G * W
+    j = torch.arange(B, device=dev)
+    r = torch.randperm(G, generator=gen, device=dev)[j % G]
+    c = (torch.randint(0, W, (G,), generator=gen, device=dev)[r] +
+         j // G) % W
     cur = st.exec_cursor.long()[r]
     slot = (cur + (c - cur) % W).to(torch.int32)
     st.prop[r, c, 0] = slot
@@ -1265,16 +1294,14 @@ def storm_reply_state_lanes(G, W, B, gen):
                 torch.ones(B, dtype=torch.int32, device=dev), one, one)
 
 
-def split_reply_lanes(st, gen):
-    """``REPLY_SPLIT``: keys (row, slot) whose three lanes lie in three
-    tiles, in order — the first a non-matching lane (a ballot below
-    ``cbal``), the second and third matching — on a column with sender
-    0's vote and members 5 (quorum 3: only the third lane's vote crosses
-    it); the other lanes random on other rows.  The kernel must decide
-    each key at its second lane.  Returns the lanes and the keys' lane
-    indices ``[keys, 3]``."""
-    from gigapaxos_tpu_torch.ops.propose_cuda import THREADS
-    K, B = REPLY_SPLIT
+def split_reply_lanes(st, gen, K, B, seg=SPLIT_SEG):
+    """K keys (row, slot) whose three lanes lie in three ``seg``-lane
+    segments of the B lanes, in order — the first a non-matching lane (a
+    ballot below ``cbal``), the second and third matching — on a column
+    with sender 0's vote and members 5 (quorum 3: only the third lane's
+    vote crosses it); the other lanes random on other rows.  The kernel
+    must decide each key at its second lane.  Returns the lanes and the
+    keys' lane indices ``[keys, 3]``."""
     dev = st.device
     perm = torch.randperm(st.G, generator=gen, device=dev)
     rows, others = perm[:K], perm[K:K + 4 * B]
@@ -1286,10 +1313,11 @@ def split_reply_lanes(st, gen):
     slot = (cur + (c - cur) % st.W).to(torch.int32)
     st.prop[rows, c, 0] = slot
     st.prop[rows, c, 3] = 1
-    tiles = B // THREADS
-    pick = torch.rand((K, tiles), generator=gen, device=dev).argsort(
+    segs = B // seg
+    assert K <= seg
+    pick = torch.rand((K, segs), generator=gen, device=dev).argsort(
         dim=1)[:, :3].sort(dim=1).values
-    at = pick * THREADS + torch.arange(K, device=dev)[:, None]
+    at = pick * seg + torch.arange(K, device=dev)[:, None]
     lanes = [t.clone() for t in reply_lanes(st, B, gen, rows=others)]
     cb = st.cbal[rows]
     for j in range(3):
@@ -1308,17 +1336,17 @@ def clone_reply(st):
                                coord_active=st.coord_active.clone())
 
 
-def check_reply(base, lanes, what):
-    """The kernel and ``accept_reply_reference`` on identical clones of
-    ``base``: all six output rows on every lane (padding lanes read row
-    0 in both), ``prop``, ``is_coord`` and ``coord_active`` must be
-    bit-identical.  Int32 flag lanes (a packed batch) go to the kernel
-    as they are.  Returns the max abs error (0), the reference's output
-    and state."""
+def check_reply(base, lanes, what, kern=None):
+    """The kernel (``kern``, else this tree's wrapper) and
+    ``accept_reply_reference`` on identical clones of ``base``: all six
+    output rows on every lane (padding lanes read row 0 in both),
+    ``prop``, ``is_coord`` and ``coord_active`` must be bit-identical.
+    Int32 flag lanes (a packed batch) go to the kernel as they are.
+    Returns the max abs error (0), the reference's output and state."""
     from gigapaxos_tpu_torch.ops.accept_reply_cuda import (
         accept_reply, accept_reply_reference)
     st_k, st_r = clone_reply(base), clone_reply(base)
-    out_k = accept_reply(st_k, *lanes)
+    out_k = (kern or accept_reply)(st_k, *lanes)
     out_r = accept_reply_reference(st_r, *lanes[:4], lanes[4] != 0,
                                    lanes[5] != 0)
     torch.cuda.synchronize()
@@ -1401,16 +1429,19 @@ def time_reply(base, lanes, out, after, hbm):
 def phase_reply_parity(name_line):
     """The accept-reply kernel against ``accept_reply_reference`` on the
     card, on identical clones of a G=2^20, W=16 coordinator state
-    (``reply_state``): at ``REPLY_BS`` over ``PARITY_SEEDS`` (past 8 also
-    half live, padded and packed as the backend pads), at ``BIG_B``
-    (tiles past the co-resident grid), on ``REPLY_CROWD`` (acks beside
-    preempting nacks of their rows), on ``REPLY_SPLIT``'s keys across
-    tiles, on the storm's lanes, with slots near INT32_MAX, across the
-    shared workspace's epoch wrap with a propose between two
-    accept-replies, and on the runtime's slab at every bucket, padded
-    and packed.  Times at each width (seed 0), on the crowd, the split
-    keys, the storm's lanes and the slab's buckets."""
-    from gigapaxos_tpu_torch.ops import rank_cuda
+    (``reply_state``): at ``REPLY_BS`` over ``PARITY_SEEDS`` (both paths
+    and their seams; past 8 also half live, padded and packed as the
+    backend pads), at ``BIG_B`` (rounds past the co-resident grid), on
+    ``REPLY_CROWDS`` (acks beside preempting nacks of their rows, on the
+    small path and the grid), on ``REPLY_SPLITS``' keys across a
+    cluster's CTAs and across the grid's blocks, on the storm's lanes at
+    4096 (a chunk of the SPI's: every lane a candidate), 2^18 and
+    ``BIG_B``, with slots near INT32_MAX, across the wide
+    path's epoch wrap, and on the runtime's slab at every bucket, padded
+    and packed.  Times at each width (seed 0; each path's floor with
+    it), on the crowds, the split keys, the storm's lanes and the slab's
+    buckets."""
+    from gigapaxos_tpu_torch.ops import accept_reply_cuda
     hbm = HBM_BYTES_PER_S["pcie" if "PCIe" in name_line else "default"]
     rows = {}
     max_err = 0
@@ -1439,34 +1470,33 @@ def phase_reply_parity(name_line):
         if first:
             held(base, reply_lanes(base, BIG_B, gen),
                  f"seed {seed}, B={BIG_B}", str(BIG_B))
-            B, n_rows = REPLY_CROWD
-            on = torch.nonzero(base.is_coord & base.coord_active)[:, 0]
-            crowd = on[torch.randperm(on.numel(), generator=gen,
-                                      device="cuda")[:n_rows]]
-            out = held(base, reply_lanes(base, B, gen, rows=crowd),
-                       f"{B} lanes on {n_rows} rows",
-                       f"{B}_on_{n_rows}")
-            if not (out[0].any() and out[1].any()):
-                raise AssertionError("accept-reply crowd: no lane decided "
-                                     "or none preempted")
-            lanes, at = split_reply_lanes(base, gen)
-            out = held(base, lanes, f"{REPLY_SPLIT[0]} keys across tiles",
-                       "split")
-            if not (bool(out[0][at[:, 1]].all()) and
-                    not out[0][at[:, 0]].any() and
-                    not out[0][at[:, 2]].any()):
-                raise AssertionError("accept-reply split keys: not "
-                                     "decided at each key's second lane")
-            # the shared workspace's epoch wraps inside a propose between
-            # two accept-replies on the same stream
-            ws = rank_cuda.workspace(base.device, base.G)
+            for B, n_rows in REPLY_CROWDS:
+                on = torch.nonzero(base.is_coord & base.coord_active)[:, 0]
+                crowd = on[torch.randperm(on.numel(), generator=gen,
+                                          device="cuda")[:n_rows]]
+                out = held(base, reply_lanes(base, B, gen, rows=crowd),
+                           f"{B} lanes on {n_rows} rows",
+                           f"{B}_on_{n_rows}")
+                if not (out[0].any() and out[1].any()):
+                    raise AssertionError(f"accept-reply crowd of {B}: no "
+                                         "lane decided or none preempted")
+            for K, B in REPLY_SPLITS:
+                lanes, at = split_reply_lanes(base, gen, K, B)
+                out = held(base, lanes, f"{K} keys across {B // SPLIT_SEG} "
+                           f"segments of {B} lanes", f"split_{B}")
+                if not (bool(out[0][at[:, 1]].all()) and
+                        not out[0][at[:, 0]].any() and
+                        not out[0][at[:, 2]].any()):
+                    raise AssertionError(f"accept-reply split keys in {B} "
+                                         "lanes: not decided at each key's "
+                                         "second lane")
+            # the wide path's epoch wraps in the second of three calls on
+            # the same stream: the contested columns' table is cleared
+            ws = accept_reply_cuda.workspace(base.device, base.G, base.W)
             ws.epoch.fill_(-2)
-            held(base, reply_lanes(base, 4099, gen),
-                 f"seed {seed}, before the epoch wrap")
-            check_propose(base, propose_lanes(base, 4099, gen),
-                          f"seed {seed}, the epoch wrapping")
-            held(base, reply_lanes(base, 4099, gen),
-                 f"seed {seed}, after the epoch wrap")
+            for k in range(3):
+                held(base, reply_lanes(base, 4099, gen),
+                     f"seed {seed}, the epoch wrapping, call {k}")
             if int(ws.epoch) != 2:
                 raise AssertionError(f"accept-reply: epoch {int(ws.epoch)} "
                                      "after the wrap, not 2")
@@ -1477,12 +1507,13 @@ def phase_reply_parity(name_line):
         del base
     gen = torch.Generator(device="cuda")
     gen.manual_seed(PARITY_SEEDS[0])
-    base, lanes = storm_reply_state_lanes(G_FULL, W_FULL, STORM_B, gen)
-    out = held(base, lanes, "storm lanes", f"storm_{STORM_B}")
-    if not bool(out[0].all()):
-        raise AssertionError("accept-reply storm lanes: not every lane "
-                             "newly decided")
-    del base, lanes
+    for B in (4096, STORM_B, BIG_B):  # the SPI's chunks, the storm's
+        base, lanes = storm_reply_state_lanes(G_FULL, W_FULL, B, gen)
+        out = held(base, lanes, f"storm lanes, B={B}", f"storm_{B}")
+        if not bool(out[0].all()):
+            raise AssertionError(f"accept-reply storm lanes, B={B}: not "
+                                 "every lane newly decided")
+        del base, lanes
     # the runtime's slab at every bucket, live lanes padded and packed as
     # ColumnarBackend pads and packs them
     for seed in PARITY_SEEDS:
@@ -1967,6 +1998,206 @@ def phase_wave_ab(parent, name_line, out_path=None):
                          f"{ms[3]:.4f} ms; parent/this {row['ratio']:.2f} "
                          f"[{name_line}]")
         del base
+    torch.cuda.empty_cache()
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(json.dumps(
+            {"card": name_line, "rows": rows}, indent=1))
+    return rows
+
+
+# Variants timed beside this tree's build in phase_kernel_ab: a tag, the
+# lanes a thread the variant's wrapper expects, the text replacements made
+# in this tree's source, and whether the variant computes what the kernel
+# computes (each is held bit-exact on every case) or is an ablation that
+# leaves a step out to time it (timed on the storm's lanes only, where
+# nothing is checked).
+COMMIT_LANES = "constexpr int kLanes = 2;"
+REPLY_LANES = "constexpr int kLanes = 4;"
+AB_VARIANTS = {
+    "commit": [
+        ("lanes=1", 1, [(COMMIT_LANES, "constexpr int kLanes = 1;")], True),
+        ("lanes=4", 4, [(COMMIT_LANES, "constexpr int kLanes = 4;")], True),
+        ("a 4-word scan", 2, [("constexpr int kScan = 2;",
+                               "constexpr int kScan = 4;")], True),
+        ("no prefetch", 2, [
+            ('  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));',
+             "  (void)p;")], True),
+        ("ablation: no scan", 2, [
+            ("got[k][adv] == gp::add_wrap(l[k].cur, adv))",
+             "adv < 1)")], False),
+    ],
+    "accept_reply": [
+        ("lanes=1", 1, [(REPLY_LANES, "constexpr int kLanes = 1;")], True),
+        ("lanes=2", 2, [(REPLY_LANES, "constexpr int kLanes = 2;")], True),
+        ("ablation: no vote or claim", 4, [
+            ("      was[k] = atomicOr(vote, fresh | kClaim);",
+             "      was[k] = 0;")], False),
+        ("ablation: no phase B", 4, [
+            ("  reply_b(a, base0, epoch, first);", "")], False),
+    ],
+}
+
+
+def _bound(wrapper, so):
+    """``wrapper`` (a fresh instance) bound to the library at ``so``: its
+    ``load()`` declares its entry points on that library instead of
+    building this tree's source."""
+    from gigapaxos_tpu_torch.ops import _build
+    lib = ctypes.CDLL(str(so))
+    real = _build.load
+    _build.load = lambda name: lib
+    try:
+        wrapper.load()
+    finally:
+        _build.load = real
+    return wrapper
+
+
+def _parent_module(parent, name):
+    """An older checkout's ``gigapaxos_tpu_torch/ops/<name>.py``, loaded
+    under a name of its own (its imports resolve to this tree's
+    package)."""
+    import importlib.util
+    path = Path(parent) / "gigapaxos_tpu_torch" / "ops" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ab_kernels(parent, name, cls):
+    """The kernels to time for ``name``: the parent's source and wrapper,
+    this tree's, and each of ``AB_VARIANTS``' (this tree's source,
+    patched); each as (tag, wrapper, exact), with its ptxas lines
+    printed."""
+    from gigapaxos_tpu_torch.ops import _build
+    mine = getattr(sys.modules[cls.__module__], name)
+    src = Path(parent) / "gigapaxos_tpu_torch" / "ops" / "csrc" / f"{name}.cu"
+    so = _build.BUILD_DIR / "parent" / f"{name}.so"
+    old = getattr(_parent_module(parent, f"{name}_cuda"),
+                  cls.__name__)()
+    log = _build.build_source(src, so)
+    kerns = [("parent", _bound(old, so), True, log)]
+    kerns.append(("this", mine, True, _build.ptxas_report(name)))
+    text = _build.sources()[name].read_text()
+    for n, (tag, lanes, patches, exact) in enumerate(AB_VARIANTS[name]):
+        v = text
+        for old_text, new_text in patches:
+            if v.count(old_text) != 1:
+                raise AssertionError(f"kernel ab {name} {tag}: the patch "
+                                     f"does not match: {old_text!r}")
+            v = v.replace(old_text, new_text)
+        vsrc = _build.BUILD_DIR / "variants" / f"{name}-{n}.cu"
+        vsrc.parent.mkdir(parents=True, exist_ok=True)
+        vsrc.write_text(v)
+        vso = vsrc.with_suffix(".so")
+        log = _build.build_source(vsrc, vso, ("-I", str(_build.CSRC)))
+        kerns.append((tag, _bound(cls(lanes=lanes), vso), exact, log))
+    for tag, _k, _exact, log in kerns:
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                info(f"ptxas {name} {tag}: {ln.strip()}")
+    return [k[:3] for k in kerns]
+
+
+def _ab_rows(name, cases, kerns, check, restorer_of, name_line, rows):
+    """Each case held bit-exact under every exact kernel, then timed in
+    turns: the kernels in order, then in reverse (``device_ms``, the
+    touched rows restored before each call).  The ablations run on the
+    storm's lanes only; the variants only on the grid's widths."""
+    for case, base, lanes, wide in cases:
+        ks = [k for k in kerns if (wide or k[0] in ("parent", "this")) and
+              (k[2] or case == "storm lanes")]
+        for tag, k, exact in ks:
+            if exact:
+                check(base, lanes, f"{name} ab {case}, {tag}", kern=k)
+        st, restore = restorer_of(base, lanes)
+        order = ks + ks[::-1]
+        ms = [device_ms(lambda: k(st, *lanes), before=restore)
+              for _tag, k, _exact in order]
+        floors = {tag: device_ms(lambda: k.floor(lanes[0].numel()),
+                                 before=restore)
+                  for tag, k, _exact in ks[:2]}  # the parent's and this
+        row = {"kernel": name, "case": case, "B": lanes[0].numel(),
+               "ms": {tag: [ms[i], ms[len(order) - 1 - i]]
+                      for i, (tag, _k, _e) in enumerate(ks)},
+               "floor_ms": floors}
+        rows.append(row)
+        info(f"kernel ab {name} {case} (B={row['B']}): " + ", ".join(
+            f"{tag} {a:.4f}/{b:.4f}" for tag, (a, b) in row["ms"].items())
+            + " ms (first and second turn); floors " + ", ".join(
+            f"{tag} {v:.4f}" for tag, v in floors.items())
+            + f" ms [{name_line}]")
+
+
+def phase_kernel_ab(parent, name_line, out_path=None):
+    """The accept-reply and commit kernels of this tree against an older
+    checkout's (``parent``: a directory holding its
+    ``gigapaxos_tpu_torch``, say one unpacked by ``git archive``), each
+    built from its own source with this tree's flags and launched
+    through its own wrapper, and against ``AB_VARIANTS`` (this tree's
+    source patched), in one process on one card.
+    Cases: the storm's lanes and random lanes at 2^18, random lanes at
+    ``BIG_B``, and for the accept-reply chunks of 4096 and 512 random
+    lanes and of 4096 of the storm's lanes (every lane a candidate, as the
+    SPI's replies are; this tree's small path).  Each kernel is held bit-exact on each case first; then
+    all are timed in turns.  Prints a line a case; writes the rows as
+    JSON to ``out_path`` if given."""
+    from gigapaxos_tpu_torch.ops import accept_reply_cuda, commit_cuda
+    rows = []
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(PARITY_SEEDS[0])
+
+    def commit_restorer(base, lanes):
+        g, _slot, _rlo, _rhi, valid = lanes
+        touched = torch.where(valid, g, 0).long().unique()
+        saved = (base.dec[touched], base.exec_cursor[touched])
+        st = clone_commit(base)
+
+        def restore():
+            st.dec.index_copy_(0, touched, saved[0])
+            st.exec_cursor.index_copy_(0, touched, saved[1])
+        return st, restore
+
+    def reply_restorer(base, lanes):
+        g, valid = lanes[0], lanes[5]
+        touched = torch.where(valid != 0, g, 0).long().unique()
+        saved = [(f, getattr(base, f)[touched])
+                 for f in ("prop", "is_coord", "coord_active")]
+        st = clone_reply(base)
+
+        def restore():
+            for f, t in saved:
+                getattr(st, f).index_copy_(0, touched, t)
+        return st, restore
+
+    kerns = _ab_kernels(parent, "commit", commit_cuda.CommitKernel)
+    storm = commit_state(G_FULL, W_FULL, gen, active_share=1.0)
+    rand = commit_state(G_FULL, W_FULL, gen)
+    cases = [("storm lanes", storm, storm_commit_lanes(storm, STORM_B, gen),
+              True),
+             ("random lanes", rand, commit_lanes(rand, STORM_B, gen), True),
+             ("random lanes", rand, commit_lanes(rand, BIG_B, gen), True)]
+    _ab_rows("commit", cases, kerns, check_commit, commit_restorer,
+             name_line, rows)
+    del storm, rand, cases
+    torch.cuda.empty_cache()
+    kerns = _ab_kernels(parent, "accept_reply",
+                        accept_reply_cuda.AcceptReplyKernel)
+    storm, storm_lanes_ = storm_reply_state_lanes(G_FULL, W_FULL, STORM_B,
+                                                  gen)
+    chunk, chunk_lanes = storm_reply_state_lanes(G_FULL, W_FULL, 4096, gen)
+    rand = reply_state(G_FULL, W_FULL, gen)
+    cases = [("storm lanes", storm, storm_lanes_, True),
+             ("random lanes", rand, reply_lanes(rand, STORM_B, gen), True),
+             ("random lanes", rand, reply_lanes(rand, BIG_B, gen), True),
+             ("a chunk", rand, reply_lanes(rand, 4096, gen), False),
+             ("a chunk", rand, reply_lanes(rand, 512, gen), False),
+             ("a chunk of the storm's lanes", chunk, chunk_lanes, False)]
+    _ab_rows("accept_reply", cases, kerns, check_reply, reply_restorer,
+             name_line, rows)
+    del storm, rand, chunk, cases
     torch.cuda.empty_cache()
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
@@ -3964,9 +4195,18 @@ def main(argv=None) -> int:
                     help="run the decide storm (phase 3) of an older "
                     "checkout unpacked in DIR and of this tree in turns on "
                     "one card, one process a run, and exit")
-    ap.add_argument("--out", help="with --wave-ab or --storm-ab: write its "
-                    "rows here as JSON; otherwise phases 10 and 11's rows, "
-                    "whole")
+    ap.add_argument("--kernel-ab", metavar="DIR",
+                    help="time the accept-reply and commit kernels of an "
+                    "older checkout unpacked in DIR against this tree's "
+                    "and its variants, in turns on one card (each "
+                    "bit-exact first), and exit")
+    ap.add_argument("--parity-only", action="store_true",
+                    help="build, run phase 2's commit, propose, "
+                    "accept-reply and wave kernel checks and phases 3 and "
+                    "4 (their launch counts), print their lines and exit")
+    ap.add_argument("--out", help="with --wave-ab, --storm-ab or "
+                    "--kernel-ab: write its rows here as JSON; otherwise "
+                    "phases 10 and 11's rows, whole")
     ap.add_argument("--main-only", action="store_true",
                     help="run only phase 10 (the bench CLI's modes), with "
                     "recovery at 1M groups, config 5 and config 6 too, "
@@ -4003,6 +4243,11 @@ def main(argv=None) -> int:
         if args.storm_ab:
             phase_storm_ab(args.storm_ab, line, args.out)
             info(f"storm-ab: {args.storm_ab} against this tree")
+            return 0
+        if args.kernel_ab:
+            _ptxas_lines(_build.build_all(["accept_reply", "commit"]))
+            phase_kernel_ab(args.kernel_ab, line, args.out)
+            info(f"kernel-ab: {args.kernel_ab} against this tree")
             return 0
         if args.runtime_only:
             _build.build_all()
@@ -4074,8 +4319,9 @@ def main(argv=None) -> int:
              f"slots behind a gap at each cursor, B={list(COMMIT_BS)} over "
              f"seeds {list(PARITY_SEEDS)}, each past 8 also half live and "
              f"padded; B={BIG_B}; {CONTENDED[0]} lanes on {CONTENDED[1]} "
-             f"rows; the storm's lanes at B={STORM_B}; cursors near "
-             f"INT32_MAX at B={STORM_B}, each seed")
+             f"rows; {STORM_B} lanes on {CONTENDED[1]} rows; the storm's "
+             f"lanes at B={STORM_B} and {BIG_B} (no second barrier); "
+             f"cursors near INT32_MAX at B={STORM_B}, each seed")
         ptiming, propose_err, propose_checked = phase_propose_parity(line)
         info(f"parity: propose kernel bit-identical to propose_reference "
              f"in {propose_checked} calls: G={G_FULL}, W={W_FULL} with "
@@ -4092,16 +4338,18 @@ def main(argv=None) -> int:
              f"accept_reply_reference in {reply_checked} calls: G={G_FULL}, "
              f"W={W_FULL} with non-coordinator and phase-1-pending rows, "
              f"columns holding other slots or already emitted, partial "
-             f"vote bitmaps, members 1, 3 and 5; B={list(REPLY_BS)} over "
+             f"vote bitmaps, members 1, 3 and 5; B={list(REPLY_BS)} (one "
+             f"CTA to 512, one cluster to 4096, the grid above) over "
              f"seeds {list(PARITY_SEEDS)}, each past 8 also half live, "
-             f"padded and packed; B={BIG_B}; {REPLY_CROWD[0]} lanes on "
-             f"{REPLY_CROWD[1]} rows (acks beside preempting nacks); "
-             f"{REPLY_SPLIT[0]} keys across tiles in {REPLY_SPLIT[1]} "
-             f"lanes; the epoch wrapping in a propose between two "
-             f"accept-replies; the storm's lanes at B={STORM_B}; slots near "
-             f"INT32_MAX at B={STORM_B}, each seed; the runtime's slab "
-             f"(G={RT_CAPACITY}) at every bucket {list(RT_BUCKETS)}, padded "
-             f"and packed")
+             f"padded and packed; B={BIG_B}; "
+             + "; ".join(f"{b} lanes on {n} rows" for b, n in REPLY_CROWDS)
+             + " (acks beside preempting nacks); "
+             + "; ".join(f"{k} keys across {b // SPLIT_SEG} segments of {b} "
+                         f"lanes" for k, b in REPLY_SPLITS)
+             + f"; the wide path's epoch wrapping; the storm's lanes at "
+             f"B=4096, {STORM_B} and {BIG_B}; slots near INT32_MAX at "
+             f"B={STORM_B}, each seed; the runtime's slab (G={RT_CAPACITY}) "
+             f"at every bucket {list(RT_BUCKETS)}, padded and packed")
         wtiming, wave_err, wave_checked = phase_wave_parity(line)
         info(f"parity: the acceptor and coordinator wave kernels "
              f"bit-identical to their torch bodies in {wave_checked} "
@@ -4146,6 +4394,9 @@ def main(argv=None) -> int:
              f"replicas at B={SPI_B}, {spi['decisions_per_s']:.0f} "
              f"decisions/s over the plain waves ({line}); kernel launches "
              f"{spi['launches']}; slab {spi['slab_bytes']} B a replica")
+        if args.parity_only:
+            info("parity-only: phases 2 to 4")
+            return 0
         rt = phase_runtime()
         _runtime_lines(rt, line)
         fo, reps = phase_failover_and_replay()

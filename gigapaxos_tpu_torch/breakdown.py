@@ -29,8 +29,8 @@ device busy share (device-side event time over that window's wall), the
 top device kernels by time with their share, and the accept, commit,
 propose, accept-reply and wave kernels' shares (found by their names,
 ``accept_cuda.KERNEL_NAME``, ``commit_cuda.KERNEL_NAME``,
-``propose_cuda.KERNEL_NAME``, ``accept_reply_cuda.KERNEL_NAME`` and
-each ``wave_cuda`` kernel's ``kernel_name``; a window that launched one
+``propose_cuda.KERNEL_NAME``, ``accept_reply_cuda.KERNEL_NAMES`` (its
+two paths) and each ``wave_cuda`` kernel's ``kernel_name``; a window that launched one
 but shows no time for it is an error, not a 0% share).
 One warm-up step precedes both windows.  For ``wave`` it reports the
 host wall of a wave (median and mean), alone, with three engine threads
@@ -138,12 +138,12 @@ def _profile(step, steps: int) -> dict:
                            f"shows no device time for "
                            f"{propose_cuda.KERNEL_NAME}")
     reply_us = sum(us for k, us, _ in rows
-                   if accept_reply_cuda.KERNEL_NAME in k)
+                   if any(n in k for n in accept_reply_cuda.KERNEL_NAMES))
     if reply_launches and not reply_us:
         raise RuntimeError(f"breakdown: the accept-reply kernel launched "
                            f"{reply_launches} times but the profiler "
                            f"shows no device time for "
-                           f"{accept_reply_cuda.KERNEL_NAME}")
+                           f"{accept_reply_cuda.KERNEL_NAMES}")
     wave_us = sum(us for k, us, _ in rows
                   if any(w.kernel_name in k for w in wave_cuda.KERNELS))
     if wave_launches and not wave_us:

@@ -98,11 +98,14 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return secs
 
 
-def build_source(src: Path, out: Path) -> str:
-    """Build one source file (say, an older checkout's) into ``out`` with
-    the flags above; returns the compiler's output, raises on failure."""
+def build_source(src: Path, out: Path, extra: Iterable[str] = ()) -> str:
+    """Build one source file (say, an older checkout's, or a variant of
+    this one's with ``extra`` flags such as ``-DNAME=VALUE``) into
+    ``out`` with the flags above; returns the compiler's output, raises
+    on failure."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, *extra, "-o", str(out),
+                           str(src)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     text = proc.stdout.decode(errors="replace")
     if proc.returncode != 0:

@@ -15,14 +15,18 @@ the runtime's wave kernels.  In short:
   about 16 MB, some 5 us at 3.35 TB/s; every row gather and store lands
   on its own sector, so the kernel is bound by random sector traffic at
   large B and by the launch and its chain of round trips at small B.
-- **Design:** ONE cooperative launch a call, one lane a thread: phase A
-  decides each lane against its row's pre-batch cursor and stores the
-  decision; a grid-wide barrier; phase B scans each storing lane's row
-  in the post-batch ``dec`` and raises ``exec_cursor`` by ``atomicMax``;
-  a grid-wide barrier; phase C reads every lane's new cursor.  The grid
-  is at most the co-resident block count (:func:`grid_plan`); lanes
-  beyond it take a grid-stride loop and carry their pre-batch cursor
-  across the barriers in their own ``new_cursor`` output word.
+- **Design:** ONE cooperative launch a call, ``LANES`` lanes a thread:
+  phase A decides each lane against its row's pre-batch cursor and
+  stores the decision; a grid-wide barrier; phase B scans each storing
+  lane's row in the post-batch ``dec``, raises ``exec_cursor`` by
+  ``atomicMax`` and writes the lane's new cursor, ``cur + adv`` (every
+  store lane of a row finds the same advance from the same cursor); a
+  second grid-wide barrier and phase C, where the lanes that do not
+  store read their row's new cursor, run only if phase A counted such a
+  lane (a device word every block reads after the first barrier).  The
+  grid is at most the co-resident block count (:func:`grid_plan`); lanes
+  beyond it take further rounds and carry their pre-batch cursor across
+  the barriers in their own ``new_cursor`` output word.
 
 :data:`commit` is the wrapper ``kernels.commit_batch`` calls.  For a
 state on a CUDA device it launches the kernel — or raises; there is no
@@ -38,15 +42,17 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Dict, Tuple
 
 import torch
 
 from gigapaxos_tpu_torch.ops.accept_cuda import INT32_MIN
 from gigapaxos_tpu_torch.ops.types import DEC_SLOT, ColumnarState
 
-# launch geometry of csrc/commit.cu (kThreads, one lane a thread); the
-# library reports its own at load and the wrapper checks they agree
-THREADS = 256
+# launch geometry of csrc/commit.cu (kThreads, kLanes lanes a thread);
+# the library reports its own at load and the wrapper checks they agree
+THREADS = 128
+LANES = 2
 KERNEL_NAME = "commit_coop_kernel"
 
 
@@ -84,15 +90,32 @@ def commit_reference(state: ColumnarState, g, slot, rlo, rhi, valid
                         state.exec_cursor[gi]])
 
 
-def grid_plan(B: int, limit: int) -> int:
+def grid_plan(B: int, limit: int, lanes: int = LANES) -> int:
     """Blocks of the cooperative launch for ``B`` lanes: one block per
-    ``THREADS`` lanes, at most ``limit`` (the co-resident block count,
-    which the grid-wide barriers need); 0 for no lanes."""
+    ``THREADS * lanes`` lanes, at most ``limit`` (the co-resident block
+    count, which the grid-wide barriers need); 0 for no lanes."""
     if B <= 0:
         return 0
     if limit < 1:
         raise ValueError(f"commit kernel: co-resident limit {limit} < 1")
-    return min(-(-B // THREADS), limit)
+    return min(-(-B // (THREADS * lanes)), limit)
+
+
+_readers: Dict[Tuple[int, int], torch.Tensor] = {}
+_readers_lock = threading.Lock()
+
+
+def readers_word(dev: torch.device) -> torch.Tensor:
+    """The device word of the current stream on ``dev`` that phase A
+    sets when a lane does not store (zero between calls: the kernel
+    clears it after the second barrier)."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    with _readers_lock:
+        w = _readers.get(key)
+        if w is None:
+            w = _readers[key] = torch.zeros(1, dtype=torch.int32,
+                                            device=dev)
+        return w
 
 
 _P = ctypes.c_void_p
@@ -100,13 +123,16 @@ _I = ctypes.c_int
 
 
 class CommitKernel:
-    """Wrapper of the CUDA commit kernel: checks, launches, counts."""
+    """Wrapper of the CUDA commit kernel: checks, launches, counts.
+    ``lanes`` is the lanes a thread the library must report (a variant of
+    the source built with another ``kLanes`` is bound with its own)."""
 
     name = "commit"
 
-    def __init__(self):
+    def __init__(self, lanes: int = LANES):
         # CUDA kernel launches (one per call), bumped under a lock
         self.launches = 0
+        self.lanes = lanes
         self._count_lock = threading.Lock()
         self._lib = None
         self._limit = {}  # device index -> co-resident block count
@@ -116,9 +142,9 @@ class CommitKernel:
         if self._lib is None:
             from gigapaxos_tpu_torch.ops import _build
             lib = _build.load(self.name)
-            lib.gp_commit.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+            lib.gp_commit.argtypes = [_P] * 10 + [_I] * 4 + [_P]
             lib.gp_commit.restype = _I
-            lib.gp_commit_limits.argtypes = [ctypes.POINTER(_I)] * 3
+            lib.gp_commit_limits.argtypes = [ctypes.POINTER(_I)] * 4
             lib.gp_commit_limits.restype = _I
             lib.gp_commit_floor.argtypes = [_I, _P]
             lib.gp_commit_floor.restype = _I
@@ -128,14 +154,15 @@ class CommitKernel:
     def coresident_blocks(self, dev: torch.device) -> int:
         """The co-resident block count of the kernel on ``dev`` (queried
         once a device); raises if the device takes no cooperative
-        launch or the library's geometry differs from this module's."""
+        launch or the library's geometry differs from this wrapper's."""
         idx = dev.index if dev.index is not None else \
             torch.cuda.current_device()
         if idx not in self._limit:
             lib = self.load()
-            t, n, coop = _I(), _I(), _I()
+            t, k, n, coop = _I(), _I(), _I(), _I()
             with torch.cuda.device(idx):
-                rc = lib.gp_commit_limits(ctypes.byref(t), ctypes.byref(n),
+                rc = lib.gp_commit_limits(ctypes.byref(t), ctypes.byref(k),
+                                          ctypes.byref(n),
                                           ctypes.byref(coop))
             if rc:
                 raise RuntimeError(f"commit kernel: limit query failed: "
@@ -143,9 +170,10 @@ class CommitKernel:
             if not coop.value:
                 raise RuntimeError(f"commit kernel: device {idx} does not "
                                    "support cooperative launches")
-            if t.value != THREADS:
-                raise RuntimeError(f"commit kernel: library geometry "
-                                   f"{t.value} threads != {THREADS}")
+            if (t.value, k.value) != (THREADS, self.lanes):
+                raise RuntimeError(
+                    f"commit kernel: library geometry {t.value} threads x "
+                    f"{k.value} lanes != {THREADS} x {self.lanes}")
             if n.value < 1:
                 raise RuntimeError("commit kernel: no block fits an SM")
             self._limit[idx] = n.value
@@ -180,14 +208,15 @@ class CommitKernel:
         out = torch.empty((4, B), dtype=torch.int32, device=dev)
         if B == 0:
             return out  # a zero-block grid is an invalid launch
-        blocks = grid_plan(B, self.coresident_blocks(dev))
+        blocks = grid_plan(B, self.coresident_blocks(dev), lanes=self.lanes)
         lib = self.load()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.gp_commit(
                 *(t.data_ptr() for t in lanes), state.active.data_ptr(),
                 state.exec_cursor.data_ptr(), state.dec.data_ptr(),
-                out.data_ptr(), B, state.G, state.W, blocks, stream)
+                out.data_ptr(), readers_word(dev).data_ptr(), B, state.G,
+                state.W, blocks, stream)
             if rc:
                 raise RuntimeError(f"commit launch failed: cuda error {rc}")
             with self._count_lock:
@@ -200,7 +229,7 @@ class CommitKernel:
         current stream: the launch floor of a call, not counted in
         ``launches``."""
         dev = torch.device("cuda", torch.cuda.current_device())
-        blocks = grid_plan(B, self.coresident_blocks(dev))
+        blocks = grid_plan(B, self.coresident_blocks(dev), lanes=self.lanes)
         rc = self.load().gp_commit_floor(
             blocks, torch.cuda.current_stream().cuda_stream)
         if rc:

@@ -2,10 +2,7 @@
 // number of EARLIER masked lanes of the batch (in lane order) with the same
 // key.  It replaces the stable lexsort and run-start cummax of
 // kernels.py:_run_rank (two sorts and a scan) with counting, and no sort.
-// The propose kernel (propose.cu) ranks its lanes by row with it; the
-// accept-reply kernel (accept_reply.cu) ranks its matching reply lanes by
-// (row, slot), and asks only whether an earlier tile holds a key
-// (rank_seen).
+// The propose kernel (propose.cu) ranks its lanes by row with it.
 //
 // A key is a row in [0, G) and a second int32 word (0 where the row alone
 // is the key).  The batch is cut into tiles of kThreads lanes; a block of a
@@ -181,24 +178,6 @@ __device__ __forceinline__ int rank_earlier(const unsigned long long* head,
     h = e.x;
   }
   return n;
-}
-
-// Step 2 as a yes or no (after a grid barrier): whether a tile before
-// `tile` holds key (row, key2); the walk stops at the first such entry.
-__device__ __forceinline__ bool rank_seen(const unsigned long long* head,
-                                          const RankEntry* pool,
-                                          unsigned epoch, int row, int key2,
-                                          int tile) {
-  unsigned long long h = __ldcg(head + row);
-  while ((unsigned)(h >> 32) == epoch) {
-    const ulonglong2 e =
-        __ldcg(reinterpret_cast<const ulonglong2*>(pool) + (unsigned)h);
-    if ((int)(e.y >> 32) == key2 &&
-        ((unsigned)e.y >> kCountBits) < (unsigned)tile)
-      return true;
-    h = e.x;
-  }
-  return false;
 }
 
 }  // namespace gp

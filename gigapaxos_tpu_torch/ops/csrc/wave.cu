@@ -37,7 +37,8 @@
 //   fresh vote | barrier | re-gather the vote word, popcount against
 //   members/2+1; dedup quorum lanes of one (g, slot) by run rank; atomicAdd
 //   EMITTED_BIT once per column; a nack above cbal clears is_coord and
-//   coord_active.
+//   coord_active (vote_dev.cuh, whose geometry, barriers and run rank the
+//   accept-reply kernel's small path shares).
 // The coordinator wave runs propose, the own accept (granted lanes, ballot
 // cbal), the own vote (reply ballot cbal if acked, else the promise), then
 // the replies' vote and the commit of their newly decided lanes.  Each
@@ -129,20 +130,31 @@
 
 #include "accept_dev.cuh"
 #include "commit_dev.cuh"
+#include "vote_dev.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxLanes = 4096;    // lanes of a chunk, at most
-constexpr int kCtaLanes = 512;     // a chunk up to this many is one CTA
-constexpr int kClusterCtas = 8;    // a larger one, one cluster of this many
-constexpr int kWarp = 32;
-constexpr int kMaxWarps = kCtaLanes / kWarp;  // warps of a CTA, at most
-constexpr int kScan = 16;          // dec slot words a scan loads at once
-constexpr int kEmitted = 1 << 30;  // types.py EMITTED_BIT
-constexpr int kVoteMask = kEmitted - 1;
-constexpr unsigned long long kNoKey = ~0ull;  // an empty table slot
+constexpr int kMaxLanes = gp::kChunkLanes;  // lanes of a chunk, at most
+constexpr int kCtaLanes = gp::kCtaLanes;    // a chunk up to this many is one
+                                            // CTA
+constexpr int kClusterCtas = gp::kClusterCtas;  // a larger one, one cluster
+constexpr int kScan = 16;  // dec slot words a scan loads at once
+using gp::RankSlot;
+using gp::run_rank;
+using gp::table_cap;
+using gp::VoteLane;
+using gp::VoteOut;
+using gp::vote_step;
+
+__device__ __forceinline__ int lane_index() {
+  return blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ bool in_range(int g, int G) {
+  return g >= 0 && g < G;
+}
 
 struct Planes {
   const uint8_t* active;
@@ -166,149 +178,6 @@ struct Half {
   int* out;
   int B;
 };
-
-// One slot of a CTA's run-rank table: a key, its masked lanes in the CTA
-// and in each of its warps.  key and total are read together, as 16 bytes.
-struct alignas(16) RankSlot {
-  unsigned long long key;
-  int total;
-  int pad;
-  unsigned char per_warp[kMaxWarps];
-};
-static_assert(sizeof(RankSlot) == 32, "a table slot is two 16-byte words");
-
-// ---- launch geometry ------------------------------------------------------
-
-struct Geometry {
-  int ctas;     // 1, or kClusterCtas: one cluster
-  int threads;  // of a CTA: one a lane, rounded up to a warp
-};
-
-Geometry geometry(int B) {
-  const int ctas = B <= kCtaLanes ? 1 : kClusterCtas;
-  const int per = (B + ctas - 1) / ctas;
-  return Geometry{ctas, (per + kWarp - 1) / kWarp * kWarp};
-}
-
-// slots of one run-rank table for CTAs of `threads`: a power of two, at
-// least twice the lanes a CTA enters
-__host__ __device__ __forceinline__ int table_cap(int threads) {
-  int cap = 2 * kWarp;
-  while (cap < 2 * threads) cap <<= 1;
-  return cap;
-}
-
-// a one-warp CTA ranks in its warp alone and needs no table
-__host__ __device__ __forceinline__ bool needs_tables(int ctas, int threads) {
-  return ctas > 1 || threads > kWarp;
-}
-
-// ---- barriers and small helpers ------------------------------------------
-
-// The barrier between two phases: every thread of the chunk has made its
-// memory operations of the phase before visible to every other.
-template <bool kCl>
-__device__ __forceinline__ void wave_barrier() {
-  if constexpr (kCl) {
-    cg::this_cluster().sync();  // barrier.cluster arrive (release) + wait
-                                // (acquire)
-  } else {
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ int lane_index() {
-  return blockIdx.x * blockDim.x + threadIdx.x;
-}
-
-__device__ __forceinline__ bool in_range(int g, int G) {
-  return g >= 0 && g < G;
-}
-
-__device__ __forceinline__ int* vote_word(const Planes& s, int row, int w) {
-  return reinterpret_cast<int*>(s.prop + (size_t)row * s.W + w) + 3;
-}
-
-__device__ __forceinline__ int hash_slot(unsigned long long key, int cap) {
-  return (int)((key * 0x9E3779B97F4A7C15ull) >> 40) & (cap - 1);
-}
-
-// ---- the run rank ----------------------------------------------------------
-
-// Every slot of `n` run-rank table slots empty.
-__device__ void clear_tables(RankSlot* t, int n) {
-  uint4* words = reinterpret_cast<uint4*>(t);
-  for (int k = threadIdx.x; k < 2 * n; k += blockDim.x)
-    words[k] = (k & 1) ? make_uint4(0, 0, 0, 0)
-                       : make_uint4(~0u, ~0u, 0, 0);  // kNoKey, total 0
-}
-
-// The lanes with `key` in the cluster's CTAs before this one: a lookup in
-// each of their tables through distributed shared memory.
-__device__ int earlier_ctas(const RankSlot* tab, int cap,
-                            unsigned long long key) {
-  cg::cluster_group cl = cg::this_cluster();
-  const int me = (int)cl.block_rank();
-  const int h = hash_slot(key, cap);
-  ulonglong2 first[kClusterCtas];
-#pragma unroll
-  for (int c = 0; c < kClusterCtas; ++c)  // the first probes, all at once
-    first[c] = c < me ? *reinterpret_cast<const ulonglong2*>(
-                            cl.map_shared_rank(tab + h, c))
-                      : make_ulonglong2(kNoKey, 0);
-  int n = 0;
-#pragma unroll
-  for (int c = 0; c < kClusterCtas; ++c) {
-    ulonglong2 got = first[c];
-    int e = h;
-    while (got.x != key && got.x != kNoKey) {  // a collision: probe on
-      e = (e + 1) & (cap - 1);
-      got = *reinterpret_cast<const ulonglong2*>(
-          cl.map_shared_rank(tab + e, c));
-    }
-    if (got.x == key) n += (int)(unsigned)got.y;  // total, the low word
-  }
-  return n;
-}
-
-// The stable run rank: for a lane with `mask`, the number of earlier lanes
-// of the chunk with `mask` and the same `key` (0 for a lane without).  Every
-// thread calls it.  `tab` is this CTA's table, cleared, with a barrier
-// between the clear and this call; the call holds one wave barrier (none
-// in a one-warp CTA), after which every thread has read what it needs of
-// every CTA's table.  No masked key is kNoKey.
-template <bool kCl>
-__device__ int run_rank(RankSlot* tab, int cap, bool mask,
-                        unsigned long long key) {
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const unsigned peers =
-      __match_any_sync(~0u, key) & __ballot_sync(~0u, mask);
-  const int in_warp = __popc(peers & ((1u << lane) - 1));
-  if (!needs_tables(kCl ? kClusterCtas : 1, blockDim.x))
-    return mask ? in_warp : 0;
-  const int leader = mask ? __ffs(peers) - 1 : lane;
-  const bool lead = mask && leader == lane;
-  int e = 0;
-  if (lead) {
-    e = hash_slot(key, cap);
-    for (;;) {
-      const unsigned long long was = atomicCAS(&tab[e].key, kNoKey, key);
-      if (was == kNoKey || was == key) break;
-      e = (e + 1) & (cap - 1);
-    }
-    tab[e].per_warp[warp] = (unsigned char)__popc(peers);
-    atomicAdd(&tab[e].total, __popc(peers));
-  }
-  wave_barrier<kCl>();  // every CTA's table whole
-  int base = 0;
-  if (lead) {
-    if (tab[e].total != __popc(peers))  // the key has lanes in other warps
-      for (int w = 0; w < warp; ++w) base += tab[e].per_warp[w];
-    if constexpr (kCl) base += earlier_ctas(tab, cap, key);
-  }
-  base = __shfl_sync(~0u, base, leader);
-  return mask ? base + in_warp : 0;
-}
 
 // ---- the steps -------------------------------------------------------------
 
@@ -343,7 +212,8 @@ template <bool kCl>
 __device__ gp::AcceptDecision accept_step(const Planes& s, bool on,
                                           const AcceptLane& a, int* cb) {
   if (on) gp::accept_raise(s.bal, a.row, a.live, a.bal, a.seen);
-  wave_barrier<kCl>();  // every raise of the batch before any decision
+  gp::chunk_barrier<kCl>();  // every raise of the batch before any
+                             // decision
   gp::AcceptDecision d{};
   *cb = 0;
   if (on) {
@@ -391,58 +261,12 @@ __device__ void commit_step(const Planes& s, bool on, const CommitLane& c,
     if (o_ow) o_ow[i] = d.out_window;
     if (d.store) gp::commit_store(s.dec, c.row, s.W, c.slot, c.rlo, c.rhi);
   }
-  wave_barrier<kCl>();  // every store of the batch before any scan
+  gp::chunk_barrier<kCl>();  // every store of the batch before any scan
   if (d.store)
     gp::commit_advance<kScan>(s.cursor, s.dec, c.row, c.cur, s.W);
-  wave_barrier<kCl>();  // every advance before any read of the new cursor
+  gp::chunk_barrier<kCl>();  // every advance before any read of the new
+                             // cursor
   if (on) o_cursor[i] = __ldcg(s.cursor + c.row);
-}
-
-// a vote lane: its row and window column (0 unless valid), slot, ballot,
-// sender and ack, and its row's flags, cbal and members
-struct VoteLane {
-  int row, w, slot, bal, sender, cb, members;
-  bool v, ic, ca, acked;
-};
-
-struct VoteOut {
-  bool newly, pre;
-  int4 col;  // the prop column before the step
-};
-
-// vote: the fresh votes | barrier | the re-gathered count, the run rank of
-// the quorum lanes of one (row, slot), EMITTED_BIT once a column, the
-// resignations
-template <bool kCl>
-__device__ VoteOut vote_step(const Planes& s, bool on, const VoteLane& l,
-                             RankSlot* tab, int cap) {
-  VoteOut o{false, false, make_int4(0, 0, 0, 0)};
-  bool match = false;
-  if (on) {
-    o.col = __ldcg(s.prop + (size_t)l.row * s.W + l.w);
-    match = l.v && l.ic && l.ca && l.bal == l.cb && l.acked && l.slot >= 0 &&
-            o.col.x == l.slot;
-    if (match && ((o.col.w >> l.sender) & 1) == 0)
-      atomicAdd(vote_word(s, l.row, l.w), 1 << l.sender);
-    o.pre = l.v && l.ic && !l.acked && l.bal > l.cb;
-  }
-  wave_barrier<kCl>();  // every vote before any re-gather, every flag read
-                        // before any resign
-  bool quorum = false;
-  if (match) {
-    const int cnt = __popc(__ldcg(vote_word(s, l.row, l.w)) & kVoteMask);
-    quorum = cnt >= gp::floor_half(l.members) + 1;
-  }
-  const int rank = run_rank<kCl>(
-      tab, cap, quorum,
-      ((unsigned long long)(unsigned)l.row << 32) | (unsigned)l.slot);
-  o.newly = quorum && (o.col.w & kEmitted) == 0 && rank == 0;
-  if (o.newly) atomicAdd(vote_word(s, l.row, l.w), kEmitted);
-  if (o.pre) {
-    s.is_coord[l.row] = 0;
-    s.coord_active[l.row] = 0;
-  }
-  return o;
 }
 
 // ---- the halves of the coordinator wave ------------------------------------
@@ -607,7 +431,8 @@ __global__ void __launch_bounds__(kCtaLanes, 1)
       acc.out[3 * B + i] = cb;
     }
   }
-  if (acc.B > 0 && com.B > 0) wave_barrier<kCl>();  // between the halves
+  if (acc.B > 0 && com.B > 0)
+    gp::chunk_barrier<kCl>();  // between the halves
   if (com.B > 0) {
     const int B = com.B;
     commit_step<kCl>(s, c_on, c, i, com.out, com.out + B, com.out + 2 * B,
@@ -621,19 +446,19 @@ __global__ void __launch_bounds__(kCtaLanes, 1)
   extern __shared__ RankSlot tabs[];  // propose, own vote, replies' vote
   const int cap = table_cap(blockDim.x);
   const int own = req.B > 0 ? 2 : 0;
-  if (needs_tables(kCl ? kClusterCtas : 1, blockDim.x))
-    clear_tables(tabs, (own + (rep.B > 0 ? 1 : 0)) * cap);
+  if (gp::needs_tables(kCl ? kClusterCtas : 1, blockDim.x))
+    gp::clear_tables(tabs, (own + (rep.B > 0 ? 1 : 0)) * cap);
   const int i = lane_index();
   ReplyLane r{};  // gathered with the request half's words
   if (i < rep.B) r = reply_lane(s, rep.in, rep.B, i);
   if (req.B > 0) request_half<kCl>(s, req, i, tabs, tabs + cap, cap);
   if (req.B > 0 && rep.B > 0)
-    wave_barrier<kCl>();  // between the halves: the replies' vote sees the
-                          // own vote's resignations
+    gp::chunk_barrier<kCl>();  // between the halves: the replies' vote
+                               // sees the own vote's resignations
   if (rep.B > 0) {
     reply_half<kCl>(s, rep, i, r, tabs + own * cap, cap);
   } else if constexpr (kCl) {
-    wave_barrier<kCl>();  // no CTA leaves while another reads its table
+    gp::chunk_barrier<kCl>();  // no CTA leaves while another reads its table
   }
 }
 
@@ -663,9 +488,7 @@ bool bad_half(int B) { return B < 0 || B > kMaxLanes; }
 
 // shared memory of a launch over B lanes with `tables` run-rank tables
 size_t table_bytes(int B, int tables) {
-  const Geometry g = geometry(B);
-  if (!needs_tables(g.ctas, g.threads)) return 0;
-  return (size_t)tables * table_cap(g.threads) * sizeof(RankSlot);
+  return gp::chunk_table_bytes(B, tables);
 }
 
 // the most shared memory a launch takes: three tables at kCtaLanes threads
@@ -694,20 +517,7 @@ cudaError_t allow_tables() {
 template <class... Args>
 cudaError_t launch(void (*kernel)(Args...), int B, size_t smem,
                    cudaStream_t stream, Args... args) {
-  const Geometry g = geometry(B);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(g.ctas);
-  cfg.blockDim = dim3(g.threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = g.ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = g.ctas > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
+  return gp::launch_chunk(kernel, B, smem, stream, args...);
 }
 
 }  // namespace
@@ -716,7 +526,7 @@ cudaError_t launch(void (*kernel)(Args...), int B, size_t smem,
 // threads a CTA.
 extern "C" int gp_wave_geometry(int B, int* ctas, int* threads) {
   if (B < 1 || B > kMaxLanes) return static_cast<int>(cudaErrorInvalidValue);
-  const Geometry g = geometry(B);
+  const gp::ChunkGeometry g = gp::chunk_geometry(B);
   *ctas = g.ctas;
   *threads = g.threads;
   return static_cast<int>(cudaSuccess);
@@ -739,7 +549,7 @@ extern "C" int gp_acceptor_wave(const void* acc_in, void* acc_out, int Ba,
   Half a{static_cast<const int*>(acc_in), static_cast<int*>(acc_out), Ba};
   Half c{static_cast<const int*>(com_in), static_cast<int*>(com_out), Bc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = geometry(B).ctas > 1
+  cudaError_t e = gp::chunk_geometry(B).ctas > 1
                       ? launch(acceptor_wave_kernel<true>, B, 0, st, s, a, c)
                       : launch(acceptor_wave_kernel<false>, B, 0, st, s, a, c);
   if (e == cudaSuccess) e = cudaGetLastError();
@@ -765,7 +575,7 @@ extern "C" int gp_coordinator_wave(const void* req_in, void* req_out, int Bq,
   Half q{static_cast<const int*>(req_in), static_cast<int*>(req_out), Bq};
   Half r{static_cast<const int*>(rep_in), static_cast<int*>(rep_out), Br};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  e = geometry(B).ctas > 1
+  e = gp::chunk_geometry(B).ctas > 1
           ? launch(coordinator_wave_kernel<true>, B, smem, st, s, q, r)
           : launch(coordinator_wave_kernel<false>, B, smem, st, s, q, r);
   if (e == cudaSuccess) e = cudaGetLastError();

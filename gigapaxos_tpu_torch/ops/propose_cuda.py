@@ -36,8 +36,8 @@ directly, so it launches no kernel.
 
 The run rank's workspace (``rank_cuda.Workspace``: a list head a row,
 tagged with an epoch the kernels keep on the device, so no call clears
-it) is one a device, stream and ``G``, shared with the accept-reply
-kernel; ``rank_cuda`` also holds the plain run rank and the grid plan.
+it) is one a device, stream and ``G``; ``rank_cuda`` also holds the
+plain run rank and the grid plan.
 """
 
 from __future__ import annotations
@@ -47,8 +47,7 @@ import threading
 
 import torch
 
-# the run rank's geometry, plain version, grid and workspace are shared
-# with the accept-reply kernel
+# the run rank's geometry, plain version, grid and workspace
 from gigapaxos_tpu_torch.ops.rank_cuda import (THREADS, grid_plan, run_rank,
                                                workspace)
 from gigapaxos_tpu_torch.ops.types import ColumnarState

@@ -1,23 +1,21 @@
-"""The run rank the propose and accept-reply kernels share: its plain
-torch version, the cooperative grid both kernels launch, and the device
-workspace of its lists.
+"""The run rank of the propose kernel: its plain torch version (which
+the accept-reply's plain version uses too), the cooperative grid the
+kernel launches, and the device workspace of its lists.
 
 ``csrc/rank_dev.cuh`` holds the device code: the rank of a lane among
 the earlier lanes of its tile with the same key (a row and a second
 word), by warp match and a shared-memory table, and across tiles a list
 a row of ``{tile, count, key2}`` entries in a workspace, walked after
 the kernel's one grid barrier.  ``csrc/propose.cu`` ranks its lanes by
-row; ``csrc/accept_reply.cu`` ranks its matching reply lanes by (row,
-slot).
+row.
 
-The workspace (:class:`Workspace`) is one a device, stream and ``G``,
-shared by both kernels: ``head[G]`` tags each list with the epoch of the
-call that wrote it, the epoch is a device word each call of either
-kernel advances, and a walk stops at a link of another epoch, so no
-call clears the heads (the kernel that wraps the epoch clears them
-itself).  Calls on one stream run in order, so they may share it; two
-streams may run the kernels at once on states of one size (the engine
-lanes), so each stream has its own.
+The workspace (:class:`Workspace`) is one a device, stream and ``G``:
+``head[G]`` tags each list with the epoch of the call that wrote it, the
+epoch is a device word each call advances, and a walk stops at a link of
+another epoch, so no call clears the heads (the call that wraps the
+epoch clears them itself).  Calls on one stream run in order, so they
+may share it; two streams may run the kernel at once on states of one
+size (the engine lanes), so each stream has its own.
 """
 
 from __future__ import annotations
@@ -28,9 +26,9 @@ from typing import Dict, Tuple
 
 import torch
 
-# the tile and block size of both kernels (kThreads in their sources, one
-# lane a thread, one tile a block at a time); each library reports its
-# own at load and its wrapper checks they agree
+# the tile and block size of the propose kernel (kThreads in its source,
+# one lane a thread, one tile a block at a time); the library reports its
+# own at load and the wrapper checks they agree
 THREADS = 256
 # bytes of one list entry of the workspace (rank_dev.cuh RankEntry)
 ENTRY_BYTES = 16

@@ -281,11 +281,11 @@ def _run_rank_np(key1, key2):
 
 @pytest.mark.parametrize("seed", range(6))
 def test_ranking_match_lanes_decides_as_ranking_quorum_lanes(seed):
-    """The kernel's design: it ranks the lanes that match their column
-    (before any vote is counted) where the plain version ranks the lanes
-    that reached quorum (after).  On random legal batches, on few rows
-    so keys repeat, ``newly`` computed the kernel's way equals the plain
-    version's."""
+    """What the wide path rests on: ranking the lanes that match their
+    column (before any vote is counted) decides as the plain version's
+    rank of the lanes that reached quorum (after).  On random legal
+    batches, on few rows so keys repeat, ``newly`` computed the first way
+    equals the plain version's."""
     rng = np.random.default_rng(100 + seed)
     host = _host(rng)
     lanes = _lanes(rng, host, 300, rows=rng.choice(G, 6, replace=False))
@@ -308,6 +308,88 @@ def test_ranking_match_lanes_decides_as_ranking_quorum_lanes(seed):
     newly = match & first & quorum_col & ((col[:, 3] & EMITTED_BIT) == 0)
     np.testing.assert_array_equal(newly, out[0] != 0)
     assert newly.any() and (match & ~first).any()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_first_match_of_column_decides_as_ranking_quorum_lanes(seed):
+    """The wide path's design: the matching lanes of one column all carry
+    the column's slot, so (row, column) is the key.  A candidate
+    (matching, on a column not yet emitted) adds its vote and claims the
+    column (bit 31 of the vote word); in whatever order they arrive, the
+    first claimer of a column no other candidate claims is its lone
+    candidate and decides alone, and a contested column's candidates
+    decide by the largest tag (epoch << 32 | ~lane, ``atomicMax``) of a
+    table holding other epochs' tags before the call.  On random legal
+    batches on few rows, ``newly`` and the vote words computed that way
+    (bits 30 and 31 cleared, ``EMITTED_BIT`` set where decided) equal the
+    plain version's."""
+    rng = np.random.default_rng(300 + seed)
+    host = _host(rng)
+    lanes = _lanes(rng, host, 300, rows=rng.choice(G, 6, replace=False))
+    g, slot, bal, sender, acked, valid = lanes
+    st_t = state_from_numpy(host, device="cpu")
+    out = accept_reply_cuda.accept_reply_reference(
+        st_t, *(torch.from_numpy(a) for a in lanes)).numpy()
+    after = state_to_numpy(st_t)
+    gi = np.where(valid, g, 0)
+    w = np.where(valid, slot % W, 0)
+    col = host["prop"][gi, w]
+    match = valid & host["is_coord"][gi] & host["coord_active"][gi] & \
+        (bal == host["cbal"][gi]) & acked & (slot >= 0) & \
+        (col[:, 0] == slot)
+    key = gi * W + w
+    for k in np.unique(key[match]):  # one slot a matching column
+        assert len(np.unique(slot[match & (key == k)])) == 1
+    cand = match & ((col[:, 3] & EMITTED_BIT) == 0)
+    votes = host["prop"][..., 3].astype(np.int64).reshape(-1)
+    fresh = match & (((col[:, 3] >> sender) & 1) == 0)
+    claimed, contested = set(), set()
+    for i in rng.permutation(np.flatnonzero(match)):  # any arrival order
+        votes[key[i]] |= int(fresh[i]) << int(sender[i])
+        if cand[i]:
+            (contested if key[i] in claimed else claimed).add(key[i])
+    epoch = int(rng.integers(2, 1 << 31))
+    table = rng.integers(0, epoch, G * W).astype(np.uint64) << np.uint64(32)
+    tag = (np.uint64(epoch) << np.uint64(32)) | \
+        (~np.arange(len(g), dtype=np.uint64) & np.uint64(0xFFFFFFFF))
+    for i in np.flatnonzero(cand):
+        if key[i] in contested:
+            table[key[i]] = max(table[key[i]], tag[i])
+    cnt = np.array([bin(int(votes[k]) & VOTE_MASK).count("1") for k in key])
+    quorum = cand & (cnt >= host["members"][gi] // 2 + 1)
+    lone = np.array([k not in contested for k in key])
+    newly = quorum & (lone | (table[key] == tag))
+    np.testing.assert_array_equal(newly, out[0] != 0)
+    for i in np.flatnonzero(newly):
+        votes[key[i]] |= EMITTED_BIT
+    np.testing.assert_array_equal(votes, after["prop"][..., 3].reshape(-1))
+    assert newly.any() and contested and (newly & ~lone).any()
+
+
+@pytest.mark.parametrize("B_", [0, 1, 8, 64, 512, 513, 4096, 4097,
+                                1 << 18, 1 << 21])
+def test_accept_reply_plan_covers_every_lane_once(B_):
+    """The path is a function of B alone: none for no lanes, one CTA of
+    B threads rounded up to a warp up to 512 lanes, one cluster of 8
+    CTAs up to 4096, the cooperative grid above (never past the
+    co-resident limit, one round of blocks with no idle one below it);
+    the kernels' walk visits every lane exactly once."""
+    limit = 1056
+    p = accept_reply_cuda.plan(B_, limit)
+    want = ("none" if B_ == 0 else "cta" if B_ <= 512 else
+            "cluster" if B_ <= accept_reply_cuda.CHUNK_LANES else "grid")
+    assert p.path == want
+    if p.path in ("cta", "cluster"):
+        assert p.blocks == (1 if want == "cta" else 8)
+        assert p.threads % 32 == 0 and p.threads <= 512
+        assert p.blocks * p.threads - B_ < 32 * p.blocks
+    if p.path == "grid":
+        per_block = accept_reply_cuda.THREADS * accept_reply_cuda.LANES
+        assert 0 < p.blocks <= limit
+        if p.blocks < limit:
+            assert p.blocks * per_block >= B_ > (p.blocks - 1) * per_block
+    visited = accept_reply_cuda.lane_walk(p, B_)
+    assert len(visited) == B_ and len(np.unique(visited)) == B_
 
 
 def test_accept_reply_batch_launches_yardsticks_do_not(monkeypatch):

@@ -15,7 +15,7 @@ import torch
 from gigapaxos_tpu.ops import kernels as jk
 from gigapaxos_tpu.ops.types import ColumnarState as JaxState
 from gigapaxos_tpu.ops.types import make_state as jax_make_state
-from gigapaxos_tpu_torch.ops import commit_cuda
+from gigapaxos_tpu_torch.ops import accept_reply_cuda, commit_cuda
 from gigapaxos_tpu_torch.ops import kernels as tk
 from gigapaxos_tpu_torch.ops.types import (NO_SLOT, state_from_numpy,
                                            state_to_numpy)
@@ -221,26 +221,87 @@ def test_commit_zero_lanes():
 
 
 @pytest.mark.parametrize("limit", [1, 7, 1056])
-@pytest.mark.parametrize("B_", [0, 1, 8, 4096, 4099, 1 << 18, 1 << 21])
+@pytest.mark.parametrize("B_", [0, 1, 8, 64, 512, 513, 4096, 4097, 4099,
+                                1 << 18, 1 << 21])
 def test_commit_grid_plan_covers_every_lane_once(B_, limit):
     """The cooperative launch's grid never exceeds the co-resident limit
-    and launches nothing for no lanes; the kernel's grid-stride walk
-    (lane first + k * stride for k >= 0, below B) then visits every lane
-    exactly once."""
+    and launches nothing for no lanes; the kernel's walk (a thread's
+    ``LANES`` lanes a round, rounds of the whole grid) then visits every
+    lane exactly once."""
     blocks = commit_cuda.grid_plan(B_, limit)
-    T = commit_cuda.THREADS
+    per_block = commit_cuda.THREADS * commit_cuda.LANES
     assert 0 <= blocks <= limit
     assert (blocks == 0) == (B_ == 0)
     if not B_:
         return
     if blocks < limit:  # one round of the grid, no idle block
-        assert blocks * T >= B_ > (blocks - 1) * T
-    stride = blocks * T
-    first = np.arange(stride, dtype=np.int64)
-    rounds = -(-B_ // stride)
-    visited = (first[None, :] + stride * np.arange(rounds)[:, None]).ravel()
-    visited = visited[visited < B_]
+        assert blocks * per_block >= B_ > (blocks - 1) * per_block
+    visited = accept_reply_cuda.lane_walk(accept_reply_cuda.Plan(
+        "grid", blocks, commit_cuda.THREADS, commit_cuda.LANES), B_)
     assert len(visited) == B_ and len(np.unique(visited)) == B_
+
+
+def _advance(dec, gi, cur):
+    """Each lane's contiguity advance from ``cur`` in ``dec`` (the
+    kernel's scan: the leading k < W with dec[row, (cur + k) % W].slot ==
+    cur + k)."""
+    k = np.arange(W)
+    want = _wrap(cur[:, None].astype(np.int64) + k[None, :])
+    ok = dec[gi[:, None], want % W, 0] == want
+    return np.cumprod(ok, axis=1).sum(axis=1)
+
+
+def _known_cursors(host, lanes, out, after):
+    """What each lane knows of its new cursor without reading it after
+    the batch: a store lane ``cur + adv`` (its own scan of the
+    post-batch ``dec``), any other lane its pre-batch ``cur``.  Returns
+    that, the store mask, the rows and the advances."""
+    g, _slot, _rlo, _rhi, valid = lanes
+    gi = np.where(valid, g, 0)
+    cur = host["exec_cursor"][gi]
+    adv = _advance(after["dec"], gi, cur)
+    store = out[0] != 0
+    return (np.where(store, _wrap(cur.astype(np.int64) + adv), cur), store,
+            gi, adv)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_store_lanes_need_no_read_back(seed):
+    """The kernel's design: every store lane of a row sees the same
+    advance from the same pre-batch cursor, so its new cursor is
+    ``cur + adv`` with no read after the batch; only lanes that do not
+    store (the ones phase A counts) can need the post-batch cursor, and
+    on random batches some do, so the second barrier cannot always be
+    skipped; in a batch where every lane stores (the storm's), every new
+    cursor is ``cur + adv``."""
+    rng = np.random.default_rng(200 + seed)
+    host = _host(rng, rng.integers(0, 1000, G))
+    lanes = _lanes(rng, host, 40, rng.choice(G, 10))
+    st_t = state_from_numpy(host, device="cpu")
+    out = commit_cuda.commit_reference(
+        st_t, *(torch.from_numpy(a) for a in lanes)).numpy()
+    known, store, gi, adv = _known_cursors(host, lanes, out,
+                                           state_to_numpy(st_t))
+    need = out[3] != known
+    assert need.any() and not (need & store).any()
+    for r in np.unique(gi[store]):  # one advance a row
+        assert len(np.unique(adv[store & (gi == r)])) == 1
+    # every lane stores: active rows (the first 56), distinct window
+    # offsets from each row's cursor, every lane valid, no padding
+    rows = rng.choice(56, 8, replace=False)
+    off = np.stack([rng.permutation(W)[:5] for _ in rows])
+    g = np.repeat(rows, 5).astype(np.int32)
+    slot = _wrap(host["exec_cursor"][g].astype(np.int64) + off.ravel())
+    perm = rng.permutation(len(g))
+    lanes = (g[perm], slot[perm], np.arange(40, dtype=np.int32),
+             np.arange(40, dtype=np.int32), np.ones(40, bool))
+    st_t = state_from_numpy(host, device="cpu")
+    out = commit_cuda.commit_reference(
+        st_t, *(torch.from_numpy(a) for a in lanes)).numpy()
+    known, store, _gi, adv = _known_cursors(host, lanes, out,
+                                            state_to_numpy(st_t))
+    assert store.all() and adv.any()
+    np.testing.assert_array_equal(out[3], known)
 
 
 def test_commit_batch_launches_yardsticks_do_not(monkeypatch):

@@ -3,17 +3,20 @@ version.
 
 Compiles ``gigapaxos_tpu_torch/ops/csrc/accept_reply.cu`` with g++
 against the stand-ins in ``cuda_runtime.h`` (one ``std::thread`` a CUDA
-thread, ``std::barrier`` for the block and grid barriers), runs
-sequences of calls through ``accept_reply_harness.cc`` at small sizes
-with a few blocks (so blocks take several tiles, and keys have lanes in
-several tiles), and holds every call's six output rows, and the final
-``prop``, ``is_coord``, ``coord_active`` and epoch, against
-``accept_reply_cuda.accept_reply_reference``: widths from 1 to 2000
+thread, ``std::barrier`` for the block, cluster and grid barriers, a
+cluster's shared memory readable by its blocks), runs sequences of calls
+through ``accept_reply_harness.cc`` at small sizes, on both paths: the
+small path (one CTA up to 512 lanes, one cluster of 8 CTAs above, up to
+4096) and the wide path on a few blocks (so a thread takes several
+rounds of lanes, and keys have lanes in several blocks and rounds).  It
+holds every call's six output rows, and the final ``prop``,
+``is_coord``, ``coord_active`` and epoch, against
+``accept_reply_cuda.accept_reply_reference``: widths from 1 to 6000
 lanes, bool and int32 (packed) flag lanes, keys whose first lane does
-not match while later tiles' lanes carry the quorum, preempting nacks
-beside acks of their rows, columns already emitted, padded lanes, valid
-lanes outside ``[0, G)`` (invalid in the kernel), slots near INT32_MAX
-and the workspace's epoch wrapping.  The card's compiler and memory
+not match while later CTAs' or blocks' lanes carry the quorum,
+preempting nacks beside acks of their rows, columns already emitted,
+padded lanes, valid lanes outside ``[0, G)`` (invalid in the kernel),
+slots near INT32_MAX and the wide path's epoch wrapping.  The card's compiler and memory
 model are not checked: ``chip_smoke.py`` phase 2 does that.
 
 Run from the repo root (the build goes to ``tools/cuda_host/_build/``)::
@@ -36,7 +39,7 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 from gigapaxos_tpu_torch.ops.accept_reply_cuda import (  # noqa: E402
-    THREADS, accept_reply_reference)
+    CHUNK_LANES, THREADS, accept_reply_reference, plan)
 from gigapaxos_tpu_torch.ops.types import (EMITTED_BIT,  # noqa: E402
                                            make_state)
 
@@ -52,14 +55,19 @@ def build() -> Path:
     """The harness, built from the current sources."""
     BUILD.mkdir(exist_ok=True)
     src = (CSRC / "accept_reply.cu").read_text()
-    src = re.sub(r"__shared__ (.*) tab\[kCap\];",
-                 r"auto& tab = emu::block_shared<\1[kCap]>();", src)
+    src = re.sub(r"extern __shared__ (.*) tab\[\];",
+                 r"\1* tab = &emu::block_shared<\1>();", src)
     # the anonymous namespace, named so the harness can reach the kernel
     src = src.replace("namespace {\n", "namespace reply_k {\n", 1)
     src = src.replace("}  // namespace\n",
                       "}  // namespace reply_k\nusing namespace reply_k;\n",
                       1)
     (BUILD / "accept_reply_host.cu").write_text(src)
+    # the launch helper's config members, out of the way of the stand-ins'
+    # gridDim and blockDim macros (found before csrc/'s copy)
+    (BUILD / "vote_dev.cuh").write_text(re.sub(
+        r"\.(gridDim|blockDim)\b", r".\1_",
+        (CSRC / "vote_dev.cuh").read_text()))
     exe = BUILD / "accept_reply_harness"
     subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-w",
                     f"-I{HERE}", f"-I{BUILD}", f"-I{CSRC}", "-o", str(exe),
@@ -107,13 +115,20 @@ def lanes(rng, st, B, blocks, rows=None, valid_share=0.9, pad=0, fb=1):
     G, W = st.G, st.W
     rows = np.arange(G) if rows is None else np.asarray(rows)
     space = len(rows) * W * 3 * SENDERS
-    key = rng.choice(space, B, replace=False)
+    key = rng.permutation(space)
     r = rows[key // (W * 3 * SENDERS)]
     c = key // (3 * SENDERS) % W
     variant = key // SENDERS % 3
     sender = (key % SENDERS).astype(np.int32)
     base = st.prop.numpy()[r, c, 0].astype(np.int64)
     slot = wrap(base + np.array([0, W, -W])[variant])
+    # one lane a (row, slot, sender): a column of no slot shifted a window
+    # may name another column's slot
+    _, first = np.unique(np.stack([r, slot, sender]), axis=1,
+                         return_index=True)
+    keep = np.sort(first)[:B]
+    assert len(keep) == B
+    r, sender, slot = r[keep], sender[keep], slot[keep]
     cb = st.cbal.numpy()[r].astype(np.int64)
     bal = wrap(cb + rng.choice([0, 0, 0, 0, -1, 1, 3], B))
     acked = rng.random(B) < 0.85
@@ -149,7 +164,8 @@ def run(exe, st, calls, epoch0=0):
                 ft = np.uint8 if fb == 1 else np.int32
                 for a in (acked, valid):
                     f.write(np.asarray(a, ft).tobytes())
-        subprocess.run([str(exe), inp, outp], check=True)
+        subprocess.run([str(exe), inp, outp], check=True,
+                       timeout=120)  # a deadlock fails, not hangs
         raw = np.fromfile(outp, np.uint8)
     outs, k = [], 0
     for g, *_ in calls:
@@ -192,7 +208,7 @@ def check(exe, name, st, calls, ref_valid=None, epoch0=0):
             raise AssertionError(f"{name}: {what} differs")
     want = epoch0
     for c in calls:
-        if len(c[0]):
+        if len(c[0]) > CHUNK_LANES:  # the wide path's calls
             want = (want + 1) % (1 << 32) or 1  # 0 is no call's epoch
     if epoch != want:
         raise AssertionError(f"{name}: epoch {epoch} != {want}")
@@ -200,12 +216,14 @@ def check(exe, name, st, calls, ref_valid=None, epoch0=0):
           f"{epoch0} -> {epoch}")
 
 
-def split_keys(rng, st, n_keys, B, blocks):
-    """Keys whose lanes lie in different tiles: a first lane (in lane
-    order) that does not match (a ballot below cbal), a matching lane in
-    a later tile and another in a later one still, on columns with one
-    vote before the batch and members 5 (quorum 3: only the last tile's
-    vote crosses it); the rest of the B lanes on other rows."""
+def split_keys(rng, st, n_keys, B, blocks, seg):
+    """Keys whose lanes lie in different ``seg``-lane segments (a
+    cluster's CTAs on the small path, a block's lane slots on the wide
+    one): a first lane (in lane order) that does not match (a ballot
+    below cbal), a matching lane in a later segment and another in a
+    later one still, on columns with one vote before the batch and
+    members 5 (quorum 3: only the last lane's vote crosses it); the rest
+    of the B lanes on other rows."""
     G, W = st.G, st.W
     rows = rng.choice(G, n_keys, replace=False)
     st.members[rows] = 5
@@ -217,13 +235,12 @@ def split_keys(rng, st, n_keys, B, blocks):
     p[rows, c, 3] = 1  # sender 0's vote
     others = np.setdiff1d(np.arange(G), rows)
     call = lanes(rng, st, B - 3 * n_keys, blocks, rows=others)
-    tiles = -(-B // THREADS)
+    segs = -(-B // seg)
     cb = st.cbal.numpy()[rows]
     pos = []
     for k in range(n_keys):
-        t = np.sort(rng.choice(tiles, 3, replace=False))  # in order
-        pos.append(np.minimum(t * THREADS + rng.integers(0, THREADS, 3),
-                              B - 1))
+        t = np.sort(rng.choice(segs, 3, replace=False))  # in order
+        pos.append(np.minimum(t * seg + rng.integers(0, seg, 3), B - 1))
     lane = [np.empty(B, np.int64) for _ in range(6)]
     placed = np.zeros(B, bool)
     for k in range(n_keys):
@@ -242,6 +259,12 @@ def split_keys(rng, st, n_keys, B, blocks):
             blocks, 1]
 
 
+def blocks_of(B, limit=3):
+    """The blocks a call of B lanes launches with a co-resident limit of
+    ``limit`` (the wide path's rounds), as the wrapper plans it."""
+    return plan(B, limit).blocks
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -250,41 +273,90 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     G, W = 128, 8
     st = state(rng, G, W)
-    check(exe, "widths", st, [
-        lanes(rng, st, B, min(-(-B // THREADS), bl)) for B, bl in
-        ((1, 1), (8, 1), (33, 1), (64, 1), (300, 2), (600, 2), (1100, 3),
-         (1500, 2), (2000, 1))])
+    check(exe, "small path widths (one CTA, one cluster)", st, [
+        lanes(rng, st, B, blocks_of(B)) for B in
+        (1, 8, 33, 64, 300, 512, 513, 1100, 2000)])
+    st = state(rng, G, W)
+    check(exe, "wide path widths (rounds of a small grid)", st, [
+        lanes(rng, st, B, bl) for B, bl in
+        ((4097, 1), (4097, 9), (5000, 2), (6000, 3))])
     st = state(rng, G, W)
     check(exe, "packed int32 flags", st, [
-        lanes(rng, st, B, bl, fb=4) for B, bl in ((64, 1), (900, 2))])
+        lanes(rng, st, B, blocks_of(B), fb=4) for B in (64, 900, 4500)])
+    # every lane a candidate on a column of its own (the SPI's and the
+    # storm's replies): each decides alone, no rank lookup
+    G2 = 1024
+    st = state(rng, G2, W)
+    st.members[:] = 3
+    st.is_coord[:] = st.coord_active[:] = True
+    p = st.prop.numpy()
+    for B in (300, 1500, 4500):
+        cols = rng.choice(G2 * W, B, replace=False)
+        r, c = cols // W, cols % W
+        p[r, c, 0] = wrap(3000 + r * W + c)
+        p[r, c, 3] = 1  # sender 0's vote: sender 1's crosses quorum
+        one = np.ones(B, bool)
+        check(exe, f"every lane a candidate, B={B}", st, [
+            [r.astype(np.int32), p[r, c, 0].copy(), st.cbal.numpy()[r],
+             np.ones(B, np.int32), one, one, blocks_of(B), 1]])
     st = state(rng, G, W)
-    check(exe, "keys across tiles", st,
-          [split_keys(rng, st, 24, 1500, 2)])
+    check(exe, "keys across a cluster's CTAs", st,
+          [split_keys(rng, st, 24, 1500, 1, 1500 // 8 // 32 * 32 + 32)])
+    st = state(rng, G, W)
+    check(exe, "keys across blocks and rounds", st,
+          [split_keys(rng, st, 40, 6000, 2, THREADS)])
     st = state(rng, G, W)
     check(exe, "eight rows", st, [
-        lanes(rng, st, B, bl, rows=rng.choice(G, 8, replace=False))
-        for B, bl in ((200, 1), (480, 2))])
+        lanes(rng, st, B, blocks_of(B), rows=rng.choice(G, 8,
+                                                        replace=False))
+        for B in (200, 480, 900)])
+    st = state(rng, G, W)
+    check(exe, "eight rows, wide", st, [
+        lanes(rng, st, 4400, 2, rows=rng.choice(G, 40, replace=False))])
     st = state(rng, G, W)
     check(exe, "padded", st, [
-        lanes(rng, st, B, bl, valid_share=1.0, pad=B // 2) for B, bl in
-        ((8, 1), (64, 1), (512, 2), (1024, 4))])
+        lanes(rng, st, B, blocks_of(B), valid_share=1.0, pad=B // 2)
+        for B in (8, 64, 512, 4096, 8192)])
     st = state(rng, G, W)
-    call = lanes(rng, st, 600, 2, valid_share=1.0)
-    out_of_range = rng.random(600) < 0.1
-    call[0] = np.where(out_of_range,
-                       np.where(rng.random(600) < 0.5,
-                                rng.integers(G, 2 * G, 600),
-                                -rng.integers(1, G, 600)),
-                       call[0]).astype(np.int32)
-    check(exe, "valid lanes outside [0, G)", st, [call],
-          ref_valid=[~out_of_range])
+    for B in (600, 5000):
+        call = lanes(rng, st, B, blocks_of(B), valid_share=1.0)
+        out_of_range = rng.random(B) < 0.1
+        call[0] = np.where(out_of_range,
+                           np.where(rng.random(B) < 0.5,
+                                    rng.integers(G, 2 * G, B),
+                                    -rng.integers(1, G, B)),
+                           call[0]).astype(np.int32)
+        check(exe, f"valid lanes outside [0, G), B={B}", st, [call],
+              ref_valid=[~out_of_range])
     st = state(rng, G, W, near_max=True)
     check(exe, "near INT32_MAX", st, [
-        lanes(rng, st, B, bl) for B, bl in ((400, 2), (600, 3))])
+        lanes(rng, st, B, blocks_of(B)) for B in (400, 600, 4800)])
+    # quorum across the wrap on contested columns (two candidates each):
+    # the call before it leaves a tag on every column it votes on without
+    # deciding (members 5, two votes), and the call that wraps decides
+    # them all, which needs the table cleared
+    G2 = 1024
+    st = state(rng, G2, W)
+    st.members[:] = 5
+    st.is_coord[:] = st.coord_active[:] = True
+    p = st.prop.numpy()
+    cols = rng.choice(G2 * W, 2200, replace=False)
+    r, c = cols // W, cols % W
+    p[r, c, 0] = wrap(2000 + r * W + c)
+    p[r, c, 3] = 0
+    rr = np.repeat(r, 2).astype(np.int32)
+    sl = np.repeat(p[r, c, 0], 2)
+    cb = st.cbal.numpy()[rr]
+    one = np.ones(4400, bool)
+    check(exe, "the epoch wrapping, contested quorum across it", st, [
+        [rr, sl, cb, np.tile(np.array(pair, np.int32), 2200), one, one,
+         blocks_of(4400), 1] for pair in ((1, 2), (3, 4))],
+        epoch0=0xFFFFFFFE)
     st = state(rng, G, W)
     check(exe, "the epoch wrapping", st, [
-        lanes(rng, st, B, bl, rows=rng.choice(G, 9, replace=False))
-        for B, bl in ((300, 2), (400, 3), (200, 1))], epoch0=0xFFFFFFFE)
+        lanes(rng, st, B, blocks_of(B), rows=rng.choice(G, 48,
+                                                        replace=False))
+        for B in (4200, 300, 4300, 4400)], epoch0=0xFFFFFFFE)
     return 0
 
 

@@ -1,7 +1,11 @@
-// Runs csrc/accept_reply.cu's kernel on the host (cuda_runtime.h's
+// Runs csrc/accept_reply.cu's kernels on the host (cuda_runtime.h's
 // stand-ins) over a sequence of calls read from a file, and writes each
 // call's output and the final state; accept_reply_check.py writes the file,
-// runs this and holds the results against accept_reply_reference.
+// runs this and holds the results against accept_reply_reference.  A call
+// of at most 4096 lanes runs the small path (one CTA, or one cluster: the
+// launch's blocks), a wider one the wide path's cooperative grid on
+// `blocks` blocks, with the contested columns' table (zero at the start),
+// the epoch and the contest word (which must be 0 after every call).
 //
 // Input (native endianness): int32 calls, G, W, maxB; uint8 is_coord[G],
 // coord_active[G]; int32 cbal[G], members[G], prop[G*W*4]; uint32 epoch;
@@ -47,8 +51,9 @@ int main(int argc, char** argv) {
   rd(f, members.data(), G);
   rd(f, prop.data(), prop.size());
   rd(f, &epoch, 1);
-  std::vector<unsigned long long> head(G, 0);
-  std::vector<gp::RankEntry> pool(maxB > 0 ? maxB : 1);
+  (void)maxB;
+  std::vector<unsigned long long> first((size_t)G * W, 0);
+  unsigned contested = 0;
   FILE* o = fopen(argv[2], "wb");
   for (int c = 0; c < calls; ++c) {
     int cb[3];
@@ -66,8 +71,23 @@ int main(int argc, char** argv) {
     Args a{g.data(), slot.data(), bal.data(), sender.data(), acked.data(),
            valid.data(), is_coord.data(), coord_active.data(), cbal.data(),
            members.data(), reinterpret_cast<int4*>(prop.data()), out.data(),
-           head.data(), pool.data(), &epoch, B, G, W, fb};
-    if (B) emu::launch(blocks, kThreads, [&] { accept_reply_coop_kernel(a); });
+           first.data(), &epoch, &contested, B, G, W, fb};
+    if (B > gp::kChunkLanes) {
+      emu::launch(blocks, kThreads, [&] { accept_reply_grid_kernel(a); });
+    } else if (B) {
+      const gp::ChunkGeometry geo = gp::chunk_geometry(B);
+      if (geo.ctas > 1)
+        emu::launch(geo.ctas, geo.threads,
+                    [&] { accept_reply_chunk_kernel<true>(a); });
+      else
+        emu::launch(1, geo.threads,
+                    [&] { accept_reply_chunk_kernel<false>(a); });
+    }
+    if (contested) {
+      fprintf(stderr, "accept_reply_harness: contest word %u after a call\n",
+              contested);
+      return 3;
+    }
     wr(o, out.data(), out.size());
   }
   wr(o, is_coord.data(), G);
